@@ -1,0 +1,145 @@
+"""Helpers shared by the kernel packages: padding, device dispatch, and the
+build and load of the hand-written CUDA kernels.
+
+Device dispatch takes the place of the JAX package's ``auto_interpret``: a
+wrapper given CUDA tensors launches its kernel (or raises), a wrapper given
+CPU tensors runs its plain PyTorch version.  There is no fallback from one to
+the other.
+
+Each kernel is one CUDA C++ source ``csrc/<name>.cu`` with a plain C entry
+``<name>_launch`` that returns ``cudaGetLastError()``.  It is compiled with
+``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root, on
+first use, under a name keyed by a hash of the source and the flags, and
+loaded with ``ctypes``.  Nothing is compiled at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def aligned(n: int, block: int) -> int:
+    return ((n + block - 1) // block) * block
+
+
+def pad_to(x: torch.Tensor, size: int, dim: int, fill) -> torch.Tensor:
+    """Pad ``x`` along ``dim`` up to ``size`` with ``fill`` (a copy only
+    when padding is needed)."""
+    pad = size - x.shape[dim]
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_full(shape, fill)], dim=dim)
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device (launch the kernel),
+    False when every tensor lies on the CPU (run the plain version)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device type {dev.type!r}")
+    if dev.index != torch.cuda.current_device():
+        # the C entries launch on the calling thread's current device
+        raise ValueError(f"tensors on {dev}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return True
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: tuple) -> None:
+    """Raise unless ``t`` has this dtype and shape and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(t: torch.Tensor, name: str, bytes_: int = 16) -> None:
+    """Raise unless ``t`` starts on a ``bytes_`` boundary (vector loads)."""
+    if t.data_ptr() % bytes_:
+        raise ValueError(f"{name} must be {bytes_}-byte aligned")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit's nvcc (PATH or /usr/local/cuda)")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the shared library of ``csrc/<name>.cu`` is built, keyed by a
+    hash of the source and the compiler flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names) -> None:
+    """Compile every kernel in ``names`` whose library is missing, one
+    ``nvcc`` for each source, all started together; raise with the
+    compiler's output if any fails."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, p in procs:
+        log, _ = p.communicate()
+        if p.returncode == 0:
+            os.replace(tmp, out)          # atomic: concurrent builds agree
+        else:
+            failed.append(f"{name}:\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+@functools.cache
+def launcher(name: str, argtypes: tuple):
+    """The C entry ``<name>_launch`` of kernel ``name``, built if needed,
+    with its ``ctypes`` signature (pointers and the stream as ``c_void_p``)."""
+    build([name])
+    fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_launch")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raise_on_error(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

@@ -1,0 +1,60 @@
+"""Wrapper of the hand-written CUDA frontier push kernel
+(``csrc/frontier_relax.cu``; it replaces the Pallas TPU kernel
+``repro/kernels/frontier_relax/kernel.py:frontier_cand`` together with the
+scatter-min that followed it, and the source says what bounds it on an H100
+and how its design answers that).
+
+``frontier_relax`` launches the kernel on CUDA tensors and runs the plain
+version (ref.py) on CPU tensors.  ``frontier_relax.launches`` counts the
+kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import common
+from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
+
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_ARGS = (_P, _P, _I64, _I64, _P, _P, _P, _P, _P)
+
+
+def frontier_relax(dist: torch.Tensor, fids: torch.Tensor,
+                   out_indptr: torch.Tensor, out_dst: torch.Tensor,
+                   out_w: torch.Tensor) -> torch.Tensor:
+    """Scatter-min ``dist[u] + w`` over the out-windows of the frontier
+    vertices ``fids`` into a copy of ``dist``; ids >= n are skipped.
+
+    dist f32 (n,); fids int64 (F,); out_indptr int32 (>= n + 1,) over the
+    outgoing CSR (out_dst int32 (m,), out_w f32 (m,)).  Weights must be
+    nonnegative: the kernel's atomicMin compares float bit patterns as
+    int32, which orders them only from +0 up to +inf.
+    """
+    n = dist.shape[0]
+    m = out_dst.shape[0]
+    common.check(dist, "dist", torch.float32, (n,))
+    common.check(fids, "fids", torch.int64, (fids.shape[0],))
+    common.check(out_indptr, "out_indptr", torch.int32,
+                 (out_indptr.shape[0],))
+    if out_indptr.shape[0] < n + 1:
+        raise ValueError(f"out_indptr needs at least {n + 1} entries")
+    common.check(out_dst, "out_dst", torch.int32, (m,))
+    common.check(out_w, "out_w", torch.float32, (m,))
+    if not common.on_cuda(dist, fids, out_indptr, out_dst, out_w):
+        return frontier_relax_ref(dist, fids, out_indptr, out_dst, out_w)
+    nd = dist.clone()
+    F = fids.shape[0]
+    if F == 0 or m == 0:
+        return nd
+    rc = common.launcher("frontier_relax", _ARGS)(
+        dist.data_ptr(), fids.data_ptr(), F, n, out_indptr.data_ptr(),
+        out_dst.data_ptr(), out_w.data_ptr(), nd.data_ptr(),
+        common.stream(dist))
+    common.raise_on_error(rc, "frontier_relax")
+    frontier_relax.launches += 1
+    return nd
+
+
+frontier_relax.launches = 0

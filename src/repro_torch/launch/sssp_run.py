@@ -1,0 +1,114 @@
+"""Driver: run one of the port's SSSP engines on a generated graph.
+
+    PYTHONPATH=src python -m repro_torch.launch.sssp_run \
+        --engine frontier_kernel --nodes 1000000
+    PYTHONPATH=src python -m repro_torch.launch.sssp_run --device cuda \
+        --corpus road --nodes 4000000 --engine delta_stepping_kernel --verify
+
+Graphs are CSR (``--corpus random|road|hub``).  Timing covers staging to
+the device, the solve and the copy of the result back; graph generation is
+excluded.  ``--verify`` holds the distances against
+``scipy.sparse.csgraph.dijkstra`` in float64 (the float32 path sums differ
+from it by rounding only, hence the relative tolerance).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+#: float32 vs float64 path sums: each of <= 4096 additions on a path rounds
+#: by at most 2**-24 of the running sum.
+VERIFY_RTOL = 4096 * 2.0 ** -24
+
+
+def scipy_distances(cg, sources) -> np.ndarray:
+    """float64 distances from ``sources`` by scipy's Dijkstra on the same
+    arcs (the incoming CSR is the transpose of scipy's row = source form)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    a = csr_matrix((cg.weights.astype(np.float64), cg.indices, cg.indptr),
+                   shape=(cg.n, cg.n)).T.tocsr()
+    return dijkstra(a, directed=True, indices=sources)
+
+
+def main(argv=None):
+    import torch
+
+    from repro_torch.core import csr as C
+    from repro_torch.core.api import (PORTED_ENGINES, resolve_device,
+                                      shortest_paths)
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--engine", default="frontier", choices=PORTED_ENGINES)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain PyTorch path")
+    ap.add_argument("--corpus", default="random",
+                    choices=["random", "road", "hub"],
+                    help="'random': --nodes/--edges (the paper's Table II "
+                         "shape at m = 3n); 'road': 4-neighbour grid, "
+                         "--nodes rounded down to a square; 'hub': "
+                         "heavy-tailed hub fan-outs")
+    ap.add_argument("--nodes", type=int, default=1000)
+    ap.add_argument("--edges", type=int, default=None,
+                    help="random corpus only (default 3 * nodes)")
+    ap.add_argument("--delta", default=None,
+                    help="Δ bucket width, a positive float or 'auto' "
+                         "(frontier and delta_stepping engines)")
+    ap.add_argument("--source", type=int, default=0)
+    ap.add_argument("--sources", type=int, default=8,
+                    help="batch size for multisource_csr")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--directed", action="store_true",
+                    help="the paper's -w flag (random corpus)")
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--verify", action="store_true")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    if args.corpus == "road":
+        g = C.road_like_csr_graph(args.nodes, seed=args.seed)
+    elif args.corpus == "hub":
+        g = C.skewed_hub_csr_graph(args.nodes, seed=args.seed)
+    else:
+        m = 3 * args.nodes if args.edges is None else args.edges
+        g = C.random_csr_graph(args.nodes, m, seed=args.seed,
+                               directed=args.directed)
+    delta = args.delta
+    if delta is not None and delta != "auto":
+        delta = float(delta)
+    multi = args.engine == "multisource_csr"
+    source = np.arange(args.sources) % g.n if multi else args.source
+    kw = {} if delta is None else {"delta": delta}
+
+    times, res = [], None
+    for _ in range(args.repeats):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = shortest_paths(g, source, engine=args.engine, device=dev, **kw)
+        times.append(time.perf_counter() - t0)
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    print(f"engine={args.engine} corpus={args.corpus} n={g.n} m={g.nnz} "
+          f"device={name} time={min(times):.6f}s"
+          + (f" sweeps={res.sweeps}" if res.sweeps is not None else "")
+          + (f" edges_relaxed={res.edges_relaxed}"
+             if res.edges_relaxed is not None else ""))
+
+    if args.verify:
+        ref = scipy_distances(g, np.atleast_1d(source))
+        got = np.atleast_2d(res.dist).astype(np.float64)
+        ok = (np.array_equal(np.isinf(ref), np.isinf(got))
+              and np.allclose(np.where(np.isinf(ref), 0, ref),
+                              np.where(np.isinf(got), 0, got),
+                              rtol=VERIFY_RTOL, atol=0))
+        print("verify:", "OK" if ok else "MISMATCH")
+        if not ok:
+            raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()
