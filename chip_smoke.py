@@ -20,7 +20,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    to its plain twin's, every kernel launched, distances within the float32
    rounding bound of ``scipy.sparse.csgraph.dijkstra`` (float64), and
    ``serial`` (the paper's Alg. 1) bitwise equal to ``bellman_csr`` on a
-   2048-vertex graph.
+   2048-vertex graph;
+4. the dense adjacency-matrix path, the paper's own, at the shapes of its
+   Tables I and II: paper-sparse-40000 (``sparse_graph(40000)``, a 6.4 GB
+   matrix) and dense-2000 (``dense_graph(2000)``).  The three min-plus
+   kernels are held against their plain versions and timed at
+   paper-sparse-40000; in the main-path window ``serial``, ``bellman``,
+   ``bellman_kernel`` and ``bellman_csr`` run on both graphs (distances
+   bitwise equal, predecessors equal across the three fixpoint engines,
+   ``serial``'s tree valid, sweeps equal, the scipy oracle), ``multisource``
+   with 8 sources, the batched fixpoint through the ``relax_matmul``
+   kernel, and one frontier-masked sweep; the serial / ``bellman_kernel``
+   wall ratio is the paper's headline comparison on this card.
 
 It prints the card, one JSON line per engine run, one ``{"kernels": ...}``
 line, and last ``{"ok": true, "device": ...}``.  Any failed check exits
@@ -46,6 +57,8 @@ SPARSE_N = 4_000_000
 ROAD_N = 4_000_000
 HUB_N = 1_000_000
 SERIAL_N = 2048
+DENSE_SPARSE_N = 40_000      # the paper's Table II, largest graph
+DENSE_DENSE_N = 2000         # the paper's Table I, largest graph
 SOURCES = 8
 KERNEL_REPS = 20
 PLAIN_REPS = 5
@@ -58,6 +71,12 @@ KERNELS = {
                        "src/repro/kernels/frontier_relax/kernel.py:46"),
     "bucket_relax": ("src/repro_torch/csrc/bucket_relax.cu",
                      "src/repro/kernels/bucket_relax/kernel.py:68"),
+    "relax_matvec": ("src/repro_torch/csrc/relax_matvec.cu",
+                     "src/repro/kernels/sssp_relax/kernel.py:55"),
+    "relax_matmul": ("src/repro_torch/csrc/relax_matmul.cu",
+                     "src/repro/kernels/sssp_relax/kernel.py:106"),
+    "relax_matvec_frontier": ("src/repro_torch/csrc/relax_matvec_frontier.cu",
+                              "src/repro/kernels/sssp_relax/kernel.py:151"),
 }
 SINGLE_ENGINES = ("bellman_csr", "bellman_csr_kernel", "frontier",
                   "frontier_kernel", "delta_stepping", "delta_stepping_kernel")
@@ -224,6 +243,16 @@ def kernel_phase(graphs: dict, device, rng) -> dict:
         check(bitwise(gn, rn) and bool(gg) == bool(rg),
               f"bucket_relax differs from bucket_relax_ref at hi={float(hi)}")
         err = max(err, max_abs_err(gn, rn))
+    # the yardstick: the same light pull as one scatter-min over the light
+    # arcs (w <= delta); the in-bucket flag is not part of it, as the ELL
+    # padding is not part of ell_relax's
+    light = torch.tensor(hub.weights <= np.float32(delta), device=device)
+    lsrc = torch.tensor(hub.indices, device=device).long()[light]
+    ldst = torch.tensor(hub.dst_ids(), device=device).long()[light]
+    lwt = torch.tensor(hub.weights, device=device)[light]
+    lib = hdist.scatter_reduce(0, ldst, hdist[lsrc] + lwt, "amin")
+    check(bitwise(lib, bucket_relax_ref(hdist, lidx, lw, mid)[0]),
+          "light scatter_reduce yardstick differs")
     b, by = bound_ms(nh * Kl * 8 + nh * 8 + 8, 2 * nh * Kl + 2 * nh)
     out["bucket_relax"] = dict(
         shape=f"hub-1M n={nh} K_light={Kl} delta={delta}",
@@ -231,6 +260,74 @@ def kernel_phase(graphs: dict, device, rng) -> dict:
         ms=time_ms(lambda: bucket_relax(hdist, lidx, lw, mid), KERNEL_REPS),
         plain_ms=time_ms(lambda: bucket_relax_ref(hdist, lidx, lw, mid),
                          PLAIN_REPS),
+        library_ms=time_ms(
+            lambda: hdist.scatter_reduce(0, ldst, hdist[lsrc] + lwt, "amin"),
+            PLAIN_REPS),
+        bound_ms=b, bound_by=by)
+    return out
+
+
+def dense_kernel_phase(g, device, rng) -> dict:
+    """The three min-plus kernels against their plain versions on
+    paper-sparse-40000's matrix.  The kernels skip rows whose label is INF
+    (for relax_matmul: INF for every source of the tile), so each bound
+    counts the rows the function needs.  No single PyTorch call computes a
+    dense min-plus product, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.sssp_relax.kernel import (relax_matmul,
+                                                       relax_matvec,
+                                                       relax_matvec_frontier)
+    from repro_torch.kernels.sssp_relax.ref import (relax_sweep_frontier_ref,
+                                                    relax_sweep_multi_ref,
+                                                    relax_sweep_ref)
+
+    out = {}
+    n = g.n
+    adj = torch.tensor(g.adj, device=device)
+    dist = mixed_dist(n, rng, device)
+    shape = f"paper-sparse-{n} n={n}"
+
+    got, ref = relax_matvec(dist, adj), relax_sweep_ref(dist, adj)
+    check(bitwise(got, ref), "relax_matvec differs from relax_sweep_ref")
+    rows = int(torch.isfinite(dist).sum())
+    b, by = bound_ms(rows * n * 4 + 2 * n * 4, 2 * rows * n)
+    out["relax_matvec"] = dict(
+        shape=f"{shape} finite_rows={rows}", bitwise_equal_plain=True,
+        max_abs_err=max_abs_err(got, ref),
+        ms=time_ms(lambda: relax_matvec(dist, adj), KERNEL_REPS),
+        plain_ms=time_ms(lambda: relax_sweep_ref(dist, adj), PLAIN_REPS),
+        library_ms=None, bound_ms=b, bound_by=by)
+
+    on = torch.tensor(rng.random(n) < 0.5, device=device)
+    got = relax_matvec_frontier(dist, on, adj)
+    ref = relax_sweep_frontier_ref(dist, on, adj)
+    check(bitwise(got, ref),
+          "relax_matvec_frontier differs from relax_sweep_frontier_ref")
+    masked = torch.where(on, dist, torch.inf)
+    check(bitwise(got, torch.minimum(dist, relax_matvec(masked, adj))),
+          "relax_matvec_frontier differs from the masked relax_matvec")
+    rows = int((on & torch.isfinite(dist)).sum())
+    b, by = bound_ms(rows * n * 4 + 2 * n * 4 + n, 2 * rows * n)
+    out["relax_matvec_frontier"] = dict(
+        shape=f"{shape} frontier={int(on.sum())} rows_read={rows}",
+        bitwise_equal_plain=True, max_abs_err=max_abs_err(got, ref),
+        ms=time_ms(lambda: relax_matvec_frontier(dist, on, adj), KERNEL_REPS),
+        plain_ms=time_ms(lambda: relax_sweep_frontier_ref(dist, on, adj),
+                         PLAIN_REPS),
+        library_ms=None, bound_ms=b, bound_by=by)
+
+    D = torch.stack([mixed_dist(n, rng, device) for _ in range(SOURCES)])
+    got, ref = relax_matmul(D, adj), relax_sweep_multi_ref(D, adj)
+    check(bitwise(got, ref), "relax_matmul differs from relax_sweep_multi_ref")
+    rows = int(torch.isfinite(D).any(dim=0).sum())
+    b, by = bound_ms(rows * n * 4 + 2 * SOURCES * n * 4,
+                     2 * SOURCES * rows * n)
+    out["relax_matmul"] = dict(
+        shape=f"{shape} S={SOURCES} rows_read={rows}",
+        bitwise_equal_plain=True, max_abs_err=max_abs_err(got, ref),
+        ms=time_ms(lambda: relax_matmul(D, adj), KERNEL_REPS),
+        plain_ms=time_ms(lambda: relax_sweep_multi_ref(D, adj), PLAIN_REPS),
         library_ms=None, bound_ms=b, bound_by=by)
     return out
 
@@ -318,10 +415,10 @@ def profile_phase(graphs: dict, walls: dict, device) -> list:
     """Each kernel engine once more under the profiler: its device busy
     time against its unprofiled wall from the main-path run (the plain
     twins are left out: their thousands of small ops make the trace cost
-    minutes)."""
+    minutes).  ``graphs`` maps a name to (graph, the engines to profile)."""
     lines = []
-    for name, cg in graphs.items():
-        for eng in TWINS:
+    for name, (cg, engines) in graphs.items():
+        for eng in engines:
             busy = device_busy_s(lambda: run_engine(cg, 0, eng, device))
             wall = walls[name, eng]
             lines.append(dict(profile=eng, graph=name, wall_s=wall,
@@ -393,6 +490,110 @@ def engine_phase(graphs: dict, device, walls: dict) -> list:
     return lines
 
 
+def dense_engine_phase(dense: dict, device, walls: dict, rng) -> list:
+    """The paper's dense path on each graph through shortest_paths: serial,
+    bellman, bellman_kernel and bellman_csr from source 0, multisource
+    with 8 sources, the batched fixpoint through the relax_matmul kernel
+    and one frontier-masked sweep.  Records each single-source wall in
+    ``walls``.  The serial / bellman_kernel ratio is given twice: over the
+    engine walls (each stages the matrix anew) and over the solves alone
+    on a matrix already on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.bellman import sssp_bellman
+    from repro_torch.core.multisource import sssp_multisource
+    from repro_torch.core.serial import dijkstra_serial
+    from repro_torch.kernels.sssp_relax.ops import (make_sweep_fn,
+                                                    relax_sweep,
+                                                    relax_sweep_multi)
+
+    lines = []
+    for name, g in dense.items():
+        cg = g.to_csr()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adj = torch.tensor(g.adj, device=device)
+        torch.cuda.synchronize()
+        stage = time.perf_counter() - t0
+        lines.append(dict(graph=name, n=g.n, nnz=cg.nnz,
+                          adj_bytes=g.adj.nbytes, stage_dense_s=stage))
+        res = {}
+        for eng in ("serial", "bellman", "bellman_kernel", "bellman_csr"):
+            res[eng], wall = run_engine(cg if eng == "bellman_csr" else g,
+                                        0, eng, device)
+            walls[name, eng] = wall
+            lines.append(dict(engine=eng, graph=name, n=g.n, nnz=cg.nnz,
+                              wall_s=wall, sweeps=res[eng].sweeps))
+        base = res["bellman"]
+        for eng, r in res.items():
+            check(r.dist.tobytes() == base.dist.tobytes(),
+                  f"{name} {eng}: dist differs from bellman")
+        for eng in ("bellman_kernel", "bellman_csr"):
+            check(np.array_equal(res[eng].pred, base.pred),
+                  f"{name} {eng}: pred differs from bellman")
+            check(res[eng].sweeps == base.sweeps,
+                  f"{name} {eng}: sweeps differ from bellman")
+        # serial sets pred in settle order (Alg. 1), so on an exact f32 tie
+        # it may pick another u: hold it to a valid tree instead
+        d, p = res["serial"].dist, res["serial"].pred
+        v = np.nonzero(np.isfinite(d))[0]
+        v = v[v != 0]
+        u = p[v]
+        check(bool((u >= 0).all())
+              and bool((d[v] == d[u] + g.adj[u, v]).all()),
+              f"{name} serial: pred is not a shortest-path tree")
+        rel = check_oracle(name, base.dist, oracle(cg, [0]))
+        lines.append(dict(oracle="scipy.sparse.csgraph.dijkstra", graph=name,
+                          max_rel_err=rel))
+        solve = {}
+        for eng, fn in (("serial", lambda: dijkstra_serial(adj, 0)),
+                        ("bellman_kernel", lambda: sssp_bellman(
+                            adj, 0, sweep_fn=make_sweep_fn()))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            solve[eng] = time.perf_counter() - t0
+        lines.append(dict(
+            graph=name, serial_solve_s=solve["serial"],
+            bellman_kernel_solve_s=solve["bellman_kernel"],
+            serial_over_bellman_kernel_wall=(
+                walls[name, "serial"] / walls[name, "bellman_kernel"]),
+            serial_over_bellman_kernel_solve=(
+                solve["serial"] / solve["bellman_kernel"])))
+
+        sources = np.arange(SOURCES) * (g.n // SOURCES)
+        ms, wall = run_engine(g, sources, "multisource", device)
+        check(ms.dist[0].tobytes() == base.dist.tobytes(),
+              f"{name} multisource row 0 differs from bellman")
+        rel = check_oracle(f"{name} multisource", ms.dist,
+                           oracle(cg, sources))
+        lines.append(dict(engine="multisource", graph=name, wall_s=wall,
+                          sweeps=ms.sweeps, sources=SOURCES,
+                          oracle_max_rel_err=rel))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D, sweeps = sssp_multisource(adj, torch.tensor(sources, device=device),
+                                     sweep_fn=relax_sweep_multi)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(D.cpu().numpy().tobytes() == ms.dist.tobytes()
+              and sweeps == ms.sweeps,
+              f"{name} sssp_multisource(relax_sweep_multi) differs from "
+              f"the multisource engine")
+        lines.append(dict(path="sssp_multisource(sweep_fn=relax_sweep_multi)",
+                          graph=name, solve_s=wall, sweeps=sweeps,
+                          sources=SOURCES))
+        # at the fixpoint no subset of rows improves anything
+        dist = torch.tensor(base.dist, device=device)
+        on = torch.tensor(rng.random(g.n) < 0.5, device=device)
+        check(bitwise(relax_sweep(dist, adj, on, frontier_mode=True), dist),
+              f"{name} frontier-masked sweep moved the fixpoint")
+        del adj, D, dist
+    return lines
+
+
 def serial_check(device) -> dict:
     """The paper's Alg. 1 on the device against bellman_csr, bitwise."""
     from repro_torch.core.csr import sparse_csr_graph
@@ -414,14 +615,20 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
     from repro_torch.core import csr as C
+    from repro_torch.core import graph as G
     from repro_torch.core.delta_stepping import delta_profile
     from repro_torch.kernels import common
     from repro_torch.kernels.bucket_relax.kernel import bucket_relax
     from repro_torch.kernels.csr_relax.kernel import ell_relax
     from repro_torch.kernels.frontier_relax.kernel import frontier_relax
+    from repro_torch.kernels.sssp_relax.kernel import (relax_matmul,
+                                                       relax_matvec,
+                                                       relax_matvec_frontier)
 
     wrappers = {"ell_relax": ell_relax, "frontier_relax": frontier_relax,
-                "bucket_relax": bucket_relax}
+                "bucket_relax": bucket_relax, "relax_matvec": relax_matvec,
+                "relax_matmul": relax_matmul,
+                "relax_matvec_frontier": relax_matvec_frontier}
     device = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -444,22 +651,37 @@ def main() -> int:
         prof = delta_profile(cg)
         print(f"graph {name}: n={cg.n} nnz={cg.nnz} auto_delta="
               f"{prof['delta']} K_light={prof['light_max_deg']}")
+    dense = {f"paper-sparse-{DENSE_SPARSE_N}": G.sparse_graph(DENSE_SPARSE_N),
+             f"dense-{DENSE_DENSE_N}": G.dense_graph(DENSE_DENSE_N)}
+    for name, g in dense.items():
+        print(f"graph {name}: n={g.n} nnz={g.to_csr().nnz} "
+              f"adj={g.adj.nbytes} bytes")
     print(f"graph generation: {time.perf_counter() - t0:.1f} s")
 
     try:
         rng = np.random.default_rng(0)
         kern = kernel_phase(graphs, device, rng)
+        big = f"paper-sparse-{DENSE_SPARSE_N}"
+        t0 = time.perf_counter()
+        kern.update(dense_kernel_phase(dense[big], device, rng))
+        dense_s = {"dense_kernel_phase_s": time.perf_counter() - t0}
         torch.cuda.synchronize()
         for fn in wrappers.values():
             fn.launches = 0
         walls = {}
         lines = engine_phase(graphs, device, walls)
+        t0 = time.perf_counter()
+        lines += dense_engine_phase(dense, device, walls, rng)
+        dense_s["dense_engine_phase_s"] = time.perf_counter() - t0
+        lines.append(dense_s)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in wrappers.items()}
         for k, cnt in launches.items():
             check(cnt > 0, f"kernel {k} was not launched on the main path")
         lines.append(serial_check(device))
-        lines += profile_phase(graphs, walls, device)
+        profiled = {name: (cg, tuple(TWINS)) for name, cg in graphs.items()}
+        profiled[big] = (dense[big], ("bellman_kernel",))
+        lines += profile_phase(profiled, walls, device)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -6,6 +6,10 @@ call, on PyTorch.
 
 Ported engines (single device):
     serial                Alg. 1, O(n²) textbook loop               (paper)
+    bellman               Alg. 3/4 relax-to-fixpoint, dense min-plus matvec
+                          sweep                                     (paper)
+    bellman_kernel        same, CUDA min-plus kernel (kernels/sssp_relax)
+    multisource           batched (S, n) dense fixpoint, plain sweep
     bellman_csr           fixpoint, O(m) scatter-min sweep on CSR
     bellman_csr_kernel    same, padded-ELL CUDA kernel (kernels/csr_relax)
     frontier              frontier-compacted sweeps, O(active out-degree)
@@ -17,10 +21,10 @@ Ported engines (single device):
 
 Each engine gives the JAX engine's answers bit for bit: the same ``dist``,
 the same ``pred`` (lowest-u tie-break), the same ``sweeps``,
-``edges_relaxed`` and ``converged``.  The dense engines (``bellman``,
-``bellman_kernel``, ``multisource``), the sharded engines and
-``engine="auto"`` (the serving dispatch) belong to later slices of the port
-and raise ``NotImplementedError``.
+``edges_relaxed`` and ``converged`` (None for the dense engines, as in
+JAX).  The dense engines densify a ``CsrGraph`` input (O(n²)).  The sharded
+engines and ``engine="auto"`` (the serving dispatch) belong to later slices
+of the port and raise ``NotImplementedError``.
 
 ``device`` defaults to ``"cuda"``, which needs a GPU; ``device="cpu"`` runs
 every engine with the kernels' plain PyTorch versions.
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch.core import csr as csr_mod
 from repro_torch.core import graph as graph_mod
+from repro_torch.core.bellman import predecessors_from_dist, sssp_bellman
 from repro_torch.core.bellman_csr import (csr_operands,
                                           predecessors_from_dist_csr,
                                           sssp_bellman_csr,
@@ -43,6 +48,7 @@ from repro_torch.core.bellman_csr import (csr_operands,
 from repro_torch.core.delta_stepping import (auto_delta, delta_operands,
                                              sssp_delta_stepping)
 from repro_torch.core.frontier import frontier_operands, sssp_frontier
+from repro_torch.core.multisource import sssp_multisource
 from repro_torch.core.serial import dijkstra_serial
 
 ENGINES = (
@@ -72,11 +78,11 @@ DELTA_ENGINES = ("delta_stepping", "delta_stepping_kernel")
 _DELTA_CONSUMERS = FRONTIER_ENGINES + DELTA_ENGINES
 SHARDED_CSR_ENGINES = ("bellman_csr_sharded", "frontier_sharded",
                        "multisource_csr_sharded")
-PORTED_ENGINES = (("serial",) + CSR_ENGINES + DELTA_ENGINES
+DENSE_ENGINES = ("bellman", "bellman_kernel", "multisource")
+PORTED_ENGINES = (("serial",) + DENSE_ENGINES + CSR_ENGINES + DELTA_ENGINES
                   + ("multisource_csr",))
 # the slice of the port each remaining engine waits for
 _LATER_SLICE = {
-    "bellman": "dense", "bellman_kernel": "dense", "multisource": "dense",
     "dijkstra_sharded": "sharded", "bellman_sharded": "sharded",
     **{e: "sharded" for e in SHARDED_CSR_ENGINES},
 }
@@ -158,9 +164,10 @@ def shortest_paths(
     target_lb: float | None = None,
 ) -> SsspResult:
     """Run one SSSP engine on ``device``.  ``source`` is an int (or an int
-    array for ``multisource_csr``).  ``g`` is a ``CsrGraph``, a dense
-    ``Graph`` or an (n, n) adjacency array; the CSR engines convert dense
-    input, ``serial`` densifies CSR input (O(n²), small n only).
+    array for ``multisource`` and ``multisource_csr``).  ``g`` is a
+    ``CsrGraph``, a dense ``Graph`` or an (n, n) adjacency array; the CSR
+    engines convert dense input, ``serial`` and the dense engines densify
+    CSR input (O(n²)).
 
     ``delta`` sets the Δ-bucket width of the frontier and ``delta_stepping``
     engines: a positive finite number or ``"auto"`` (per graph, from
@@ -184,10 +191,27 @@ def shortest_paths(
             g = graph_mod.Graph(adj=adj, n=adj.shape[0])
         cg = None
 
-    if engine == "serial":
-        adj = (cg.to_dense() if cg is not None else g).adj
-        d, p = dijkstra_serial(torch.tensor(adj, device=dev), int(source))
-        return SsspResult(d.cpu().numpy(), p.cpu().numpy(), None, engine)
+    if engine == "serial" or engine in DENSE_ENGINES:
+        adj = torch.tensor((cg.to_dense() if cg is not None else g).adj,
+                           device=dev)
+        if engine == "serial":
+            d, p = dijkstra_serial(adj, int(source))
+            return SsspResult(d.cpu().numpy(), p.cpu().numpy(), None, engine)
+        if engine == "multisource":
+            # the plain batched sweep, as JAX's facade passes no sweep_fn
+            srcs = np.atleast_1d(np.asarray(source, np.int64))
+            D, s = sssp_multisource(adj, torch.tensor(srcs, device=dev),
+                                    max_sweeps=max_sweeps)
+            return SsspResult(D.cpu().numpy(), None, s, engine,
+                              sources=srcs.astype(np.int32))
+        sweep_fn = None
+        if engine == "bellman_kernel":
+            from repro_torch.kernels.sssp_relax.ops import make_sweep_fn
+
+            sweep_fn = make_sweep_fn()
+        d, p, s = sssp_bellman(adj, int(source), sweep_fn=sweep_fn,
+                               max_sweeps=max_sweeps)
+        return SsspResult(d.cpu().numpy(), p.cpu().numpy(), s, engine)
 
     if cg is None:
         cg = g.to_csr()
@@ -248,19 +272,17 @@ def shortest_paths(
                       edges_relaxed=s * cg.nnz, converged=c)
 
 
-def recover_pred(result: SsspResult, g: "csr_mod.CsrGraph", *,
+def recover_pred(result: SsspResult,
+                 g: "graph_mod.Graph | csr_mod.CsrGraph | np.ndarray", *,
                  device="cuda") -> np.ndarray:
     """Rebuild predecessor rows for a result that skipped them (the
-    multisource engine), with the same O(m) recovery and tie-breaks as the
-    single-source engines.  Results that carry a pred are returned as-is.
-    Output matches ``result.dist``'s shape.  Dense-graph recovery comes with
-    the dense slice of the port."""
+    multisource engines), with the recovery and tie-breaks of the
+    single-source engines: the O(m) one over CSR arcs for a ``CsrGraph``,
+    the blocked O(n²) masked argmin for a dense ``Graph`` or (n, n) array.
+    Results that carry a pred are returned as-is.  Output matches
+    ``result.dist``'s shape."""
     if result.pred is not None:
         return result.pred
-    if not isinstance(g, csr_mod.CsrGraph):
-        raise NotImplementedError(
-            "recover_pred on a dense graph comes with the dense slice of "
-            "the port; pass a CsrGraph")
     dev = resolve_device(device)
     D = torch.tensor(np.atleast_2d(result.dist).astype(np.float32),
                      device=dev)
@@ -269,7 +291,14 @@ def recover_pred(result: SsspResult, g: "csr_mod.CsrGraph", *,
     else:
         # dist[source] == 0 is each row's minimum under nonnegative weights
         srcs = torch.argmin(D, dim=1).tolist()
-    ops = csr_operands(g, device=dev)
-    P = torch.stack([predecessors_from_dist_csr(D[i], ops, int(s))
-                     for i, s in enumerate(srcs)]).cpu().numpy()
+    if isinstance(g, csr_mod.CsrGraph):
+        ops = csr_operands(g, device=dev)
+        rows = [predecessors_from_dist_csr(D[i], ops, int(s))
+                for i, s in enumerate(srcs)]
+    else:
+        adj = torch.tensor(g.adj if isinstance(g, graph_mod.Graph)
+                           else np.asarray(g, np.float32), device=dev)
+        rows = [predecessors_from_dist(D[i], adj, int(s))
+                for i, s in enumerate(srcs)]
+    P = torch.stack(rows).cpu().numpy()
     return P if np.ndim(result.dist) == 2 else P[0]

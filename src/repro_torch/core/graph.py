@@ -1,8 +1,9 @@
-"""Dense graph container and the corpus generators (numpy only).
+"""Dense graph container, the paper's padding and the corpus generators
+(numpy only).
 
 A copy of the parts of ``repro/core/graph.py`` this package needs: the same
 numpy RNG calls in the same order, so one seed gives byte-identical edge
-lists (and hence byte-identical CSR arrays) in both packages.
+lists, adjacency matrices and CSR arrays in both packages.
 
 Unreachable entries are ``INF``; the diagonal is 0.
 """
@@ -44,6 +45,38 @@ class Graph:
 
             self.__dict__["_csr"] = _csr.CsrGraph.from_dense(self)
         return self.__dict__["_csr"]
+
+    def padded(self, multiple: int) -> "Graph":
+        """Pad to ``padded_size(n, multiple)`` with INF rows and columns and
+        a 0 diagonal (the paper's padding, §III-B.2): padding vertices are
+        unreachable and never relax anything."""
+        pn = padded_size(self.n, multiple)
+        if pn == self.n:
+            return self
+        out = np.full((pn, pn), INF, dtype=np.float32)
+        out[: self.n, : self.n] = self.adj
+        for i in range(self.n, pn):
+            out[i, i] = 0.0
+        return Graph(adj=out, n=self.n, directed=self.directed)
+
+
+def padded_size(n: int, multiple: int) -> int:
+    """The paper's "Calculate Padded Vertices Number" (verbatim logic)."""
+    if multiple > n:
+        return multiple
+    rem = n % multiple
+    return n if rem == 0 else n + (multiple - rem)
+
+
+def from_adjacency(adj, directed: bool = False) -> Graph:
+    """A :class:`Graph` from an existing (n, n) adjacency matrix (for
+    example one built by another package): INF where no edge, 0 diagonal.
+    The matrix is copied as float32, never aliased, and frozen."""
+    adj = np.array(adj, np.float32)
+    if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
+        raise ValueError(f"adjacency must be square (n, n), got {adj.shape}")
+    adj.setflags(write=False)
+    return Graph(adj=adj, n=adj.shape[0], directed=directed)
 
 
 def from_edge_list(
@@ -165,3 +198,25 @@ def random_graph(
         n, m, seed=seed, max_weight=max_weight, connected=connected
     )
     return from_edge_list(n, e, w, directed=directed)
+
+
+def dense_graph(n: int, *, seed: int = 0) -> Graph:
+    """Paper Table I: complete-ish graph, m = n(n-1)/2."""
+    return random_graph(n, n * (n - 1) // 2, seed=seed)
+
+
+def sparse_graph(n: int, *, seed: int = 0) -> Graph:
+    """Paper Table II: m = 3n (the paper's 1:3 node:edge ratio)."""
+    return random_graph(n, 3 * n, seed=seed)
+
+
+# The paper's evaluation corpus (Tables I and II) as (n, m).
+PAPER_DENSE = [(10, 45), (100, 4950), (1000, 499500), (2000, 1899500)]
+PAPER_SPARSE = [
+    (10, 30), (100, 300), (1000, 3000), (2000, 6000),
+    (10000, 30000), (20000, 60000), (40000, 120000),
+]
+
+
+def paper_graph(n: int, m: int, *, seed: int = 0) -> Graph:
+    return random_graph(n, m, seed=seed)

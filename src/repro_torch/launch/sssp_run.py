@@ -4,10 +4,15 @@
         --engine frontier_kernel --nodes 1000000
     PYTHONPATH=src python -m repro_torch.launch.sssp_run --device cuda \
         --corpus road --nodes 4000000 --engine delta_stepping_kernel --verify
+    PYTHONPATH=src python -m repro_torch.launch.sssp_run --device cuda \
+        --engine bellman_kernel --nodes 40000 --edges 120000 --verify
 
-Graphs are CSR (``--corpus random|road|hub``).  Timing covers staging to
-the device, the solve and the copy of the result back; graph generation is
-excluded.  ``--verify`` holds the distances against
+Graphs are CSR (``--corpus random|road|hub``), except that ``serial`` and
+the dense engines take the random corpus as a dense ``Graph`` (the
+adjacency matrix of ``random_graph``, O(n²) memory; they densify the other
+corpora).  Timing covers staging to the device, the solve and the copy of
+the result back; graph generation is excluded.  ``--verify`` holds the
+distances against
 ``scipy.sparse.csgraph.dijkstra`` in float64 (the float32 path sums differ
 from it by rounding only, hence the relative tolerance).
 """
@@ -38,8 +43,9 @@ def main(argv=None):
     import torch
 
     from repro_torch.core import csr as C
-    from repro_torch.core.api import (PORTED_ENGINES, resolve_device,
-                                      shortest_paths)
+    from repro_torch.core import graph as G
+    from repro_torch.core.api import (DENSE_ENGINES, PORTED_ENGINES,
+                                      resolve_device, shortest_paths)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", default="frontier", choices=PORTED_ENGINES)
@@ -59,7 +65,7 @@ def main(argv=None):
                          "(frontier and delta_stepping engines)")
     ap.add_argument("--source", type=int, default=0)
     ap.add_argument("--sources", type=int, default=8,
-                    help="batch size for multisource_csr")
+                    help="batch size for multisource and multisource_csr")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--directed", action="store_true",
                     help="the paper's -w flag (random corpus)")
@@ -68,18 +74,24 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    dense = (args.corpus == "random"
+             and args.engine in ("serial",) + DENSE_ENGINES)
+    m = 3 * args.nodes if args.edges is None else args.edges
     if args.corpus == "road":
         g = C.road_like_csr_graph(args.nodes, seed=args.seed)
     elif args.corpus == "hub":
         g = C.skewed_hub_csr_graph(args.nodes, seed=args.seed)
+    elif dense:
+        g = G.random_graph(args.nodes, m, seed=args.seed,
+                           directed=args.directed)
     else:
-        m = 3 * args.nodes if args.edges is None else args.edges
         g = C.random_csr_graph(args.nodes, m, seed=args.seed,
                                directed=args.directed)
+    cg = g.to_csr() if dense else g
     delta = args.delta
     if delta is not None and delta != "auto":
         delta = float(delta)
-    multi = args.engine == "multisource_csr"
+    multi = args.engine in ("multisource", "multisource_csr")
     source = np.arange(args.sources) % g.n if multi else args.source
     kw = {} if delta is None else {"delta": delta}
 
@@ -92,14 +104,14 @@ def main(argv=None):
         times.append(time.perf_counter() - t0)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"engine={args.engine} corpus={args.corpus} n={g.n} m={g.nnz} "
+    print(f"engine={args.engine} corpus={args.corpus} n={g.n} m={cg.nnz} "
           f"device={name} time={min(times):.6f}s"
           + (f" sweeps={res.sweeps}" if res.sweeps is not None else "")
           + (f" edges_relaxed={res.edges_relaxed}"
              if res.edges_relaxed is not None else ""))
 
     if args.verify:
-        ref = scipy_distances(g, np.atleast_1d(source))
+        ref = scipy_distances(cg, np.atleast_1d(source))
         got = np.atleast_2d(res.dist).astype(np.float64)
         ok = (np.array_equal(np.isinf(ref), np.isinf(got))
               and np.allclose(np.where(np.isinf(ref), 0, ref),

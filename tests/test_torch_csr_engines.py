@@ -219,9 +219,9 @@ def test_dense_graph_input_converts_like_jax():
     ("delta_stepping", {"delta": "wide"}, ValueError),
     ("bellman_csr", {"target": 3}, ValueError),
     ("delta_stepping", {"target": 3}, ValueError),
-    ("bellman", {}, NotImplementedError),
-    ("bellman_kernel", {}, NotImplementedError),
-    ("multisource", {}, NotImplementedError),
+    ("bellman", {"delta": 5.0}, ValueError),
+    ("bellman_kernel", {"target": 3}, ValueError),
+    ("multisource", {"delta": "auto"}, ValueError),
     ("dijkstra_sharded", {}, NotImplementedError),
     ("bellman_sharded", {}, NotImplementedError),
     ("bellman_csr_sharded", {}, NotImplementedError),
