@@ -8,7 +8,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
 1. holds each kernel against its plain PyTorch version, bitwise, at the
    shapes the main path gives it, and times the kernel, the plain version
    and (where one exists) the PyTorch library call computing the same
-   function, with CUDA events (medians);
+   function, with CUDA events (medians).  The two CSR pull kernels
+   (``ell_relax``, ``bucket_relax``) each run at sparse-4M, hub-1M (full
+   and light incoming CSR) and road-4M, are also held against the ELL
+   plain versions on the padded ELL of the same arcs;
 2. drives the main path — ``repro_torch.core.api.shortest_paths`` on the
    device — over every single-device CSR engine on sparse-4M
    (``sparse_csr_graph``), road-4M (``road_like_csr_graph``, a 2000 × 2000
@@ -33,9 +36,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    kernel, and one frontier-masked sweep; the serial / ``bellman_kernel``
    wall ratio is the paper's headline comparison on this card.
 
-It prints the card, one JSON line per engine run, one ``{"kernels": ...}``
-line, and last ``{"ok": true, "device": ...}``.  Any failed check exits
-non-zero before that line; so does a machine without a CUDA GPU.
+It prints the card, one JSON line per pull-kernel shape and per engine
+run, one ``{"kernels": ...}`` line, and last ``{"ok": true, "device":
+...}``.  Any failed check exits non-zero before that line; so does a
+machine without a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -150,49 +154,127 @@ def mixed_dist(n: int, rng, device):
     return torch.tensor(d, device=device)
 
 
-def kernel_phase(graphs: dict, device, rng) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
-    import numpy as np
+def pull_phase(graphs: dict, device, rng) -> tuple[dict, list]:
+    """The two CSR pull kernels, ``ell_relax`` and ``bucket_relax``, each
+    at the main path's shapes: sparse-4M's incoming CSR, hub-1M's full one
+    (16 rows of ~520 arcs) and its light one at its auto-Δ, and road-4M's
+    (it carries most launches of both kernels on the main path).  At
+    sparse-4M and road-4M the auto-Δ makes every arc light, so the full
+    and the light CSR are the same.  Each kernel is held bitwise against
+    its plain CSR version and its ELL plain version on the padded ELL of
+    the same arcs (the TPU kernel's operand; ``bucket_relax`` at three
+    ``hi``, flag included), then timed with its plain version and the
+    ``scatter_reduce`` yardstick over the flat arcs.  ``bound_ms``
+    counts the CSR's bytes, ``ell_bound_ms`` the padded ELL's.  Returns the
+    kernels line's entries (sparse-4M for ``ell_relax``, hub-1M light for
+    ``bucket_relax``, as in earlier runs) and one line a kernel and shape."""
     import torch
 
     from repro_torch.core.delta_stepping import auto_delta
     from repro_torch.kernels.bucket_relax.kernel import bucket_relax
-    from repro_torch.kernels.bucket_relax.ref import bucket_relax_ref
+    from repro_torch.kernels.bucket_relax.ref import (bucket_relax_csr_ref,
+                                                      bucket_relax_ref)
+    from repro_torch.kernels.common import lane_group
     from repro_torch.kernels.csr_relax.kernel import ell_relax
-    from repro_torch.kernels.csr_relax.ref import ell_relax_ref
+    from repro_torch.kernels.csr_relax.ref import (ell_relax_csr_ref,
+                                                   ell_relax_ref, row_ids)
+
+    sparse, road, hub = graphs["sparse"], graphs["road"], graphs["hub"]
+    dh = auto_delta(hub)
+    shapes = (
+        ("sparse-4M in-CSR", sparse,
+         (sparse.indptr, sparse.indices, sparse.weights), sparse.ell),
+        ("hub-1M in-CSR", hub, (hub.indptr, hub.indices, hub.weights),
+         hub.ell),
+        (f"hub-1M light in-CSR delta={dh}", hub, hub.light_in_csr(dh),
+         lambda: hub.light_in_ell(dh)),
+        ("road-4M in-CSR", road, (road.indptr, road.indices, road.weights),
+         road.ell),
+    )
+    main, lines = {}, []
+    for shape, cg, (ip_np, src_np, w_np), ell in shapes:
+        n, m = cg.n, int(src_np.shape[0])
+        dist = mixed_dist(n, rng, device)
+        csr = (torch.tensor(ip_np, device=device).int(),
+               torch.tensor(src_np, device=device),
+               torch.tensor(w_np, device=device))
+        idx_np, ew_np = ell()
+        K = int(idx_np.shape[1])
+        idx, ew = (torch.tensor(idx_np, device=device),
+                   torch.tensor(ew_np, device=device))
+        plain_new = ell_relax_csr_ref(dist, *csr)
+        mid = torch.median(dist[torch.isfinite(dist)])
+
+        got = ell_relax(dist, *csr)
+        check(bitwise(got, plain_new),
+              f"ell_relax differs from ell_relax_csr_ref at {shape}")
+        check(bitwise(got, ell_relax_ref(dist, idx, ew)),
+              f"ell_relax differs from ell_relax_ref at {shape}")
+        err = {"ell_relax": max_abs_err(got, plain_new), "bucket_relax": 0.0}
+        for hi in (torch.tensor(0.0, device=device), mid,
+                   torch.tensor(float("inf"), device=device)):
+            gn, gg = bucket_relax(dist, *csr, hi)
+            for rn, rg in (bucket_relax_csr_ref(dist, *csr, hi),
+                           bucket_relax_ref(dist, idx, ew, hi)):
+                check(bitwise(gn, rn) and bool(gg) == bool(rg),
+                      f"bucket_relax differs from its plain versions at "
+                      f"{shape} hi={float(hi)}")
+            err["bucket_relax"] = max(err["bucket_relax"],
+                                      max_abs_err(gn, plain_new))
+        del idx, ew, idx_np, ew_np
+        # the yardstick: one scatter-min over the flat arcs (the in-bucket
+        # flag is not part of it)
+        ip, src, w = csr[0], csr[1].long(), csr[2]
+        dst = row_ids(ip, m)
+        lib = dist.scatter_reduce(0, dst, dist[src] + w, "amin")
+        check(bitwise(lib, plain_new),
+              f"scatter_reduce yardstick differs at {shape}")
+        lib_ms = time_ms(
+            lambda: dist.scatter_reduce(0, dst, dist[src] + w, "amin"),
+            PLAIN_REPS)
+        runs = {"ell_relax": (lambda: ell_relax(dist, *csr),
+                              lambda: ell_relax_csr_ref(dist, *csr), 0),
+                "bucket_relax": (lambda: bucket_relax(dist, *csr, mid),
+                                 lambda: bucket_relax_csr_ref(dist, *csr,
+                                                              mid),
+                                 8)}           # hi and the flag
+        for name, (fn, plain, extra) in runs.items():
+            b, by = bound_ms(m * 8 + (n + 1) * 4 + n * 8 + extra, 2 * m + n)
+            ell_b, _ = bound_ms(n * K * 8 + n * 8 + extra, 2 * n * K + n)
+            line = dict(
+                shape=f"{shape} n={n} arcs={m} K={K}",
+                bitwise_equal_plain=True, bitwise_equal_ell_ref=True,
+                max_abs_err=err[name], ms=time_ms(fn, KERNEL_REPS),
+                plain_ms=time_ms(plain, PLAIN_REPS), library_ms=lib_ms,
+                bound_ms=b, bound_by=by, ell_bound_ms=ell_b,
+                group=lane_group(n, m),
+                max_degree=int((ip[1:] - ip[:-1]).max()))
+            lines.append(dict(pull_kernel=name, **line))
+            if (name, shape) in (("ell_relax", "sparse-4M in-CSR"),
+                                 ("bucket_relax", shapes[2][0])):
+                main[name] = {k: line[k] for k in (
+                    "shape", "bitwise_equal_plain", "max_abs_err", "ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "ell_bound_ms")}
+        del dist, csr, src, dst, w, lib, plain_new
+    return main, lines
+
+
+def kernel_phase(graphs: dict, device, rng) -> tuple[dict, list]:
+    """Each CSR-path kernel against its plain version at the main path's
+    shapes: the two pull kernels (:func:`pull_phase`) and frontier_relax."""
+    import numpy as np
+    import torch
+
     from repro_torch.kernels.frontier_relax.kernel import frontier_relax
     from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
 
-    out = {}
+    out, lines = pull_phase(graphs, device, rng)
     sparse = graphs["sparse"]
     n = sparse.n
     dist = mixed_dist(n, rng, device)
 
-    # ell_relax on the sparse graph's incoming ELL.
-    idx_np, w_np = sparse.ell()
-    idx, w = torch.tensor(idx_np, device=device), torch.tensor(w_np,
-                                                               device=device)
-    K = idx.shape[1]
-    got, ref = ell_relax(dist, idx, w), ell_relax_ref(dist, idx, w)
-    check(bitwise(got, ref), "ell_relax differs from ell_relax_ref")
-    src = torch.tensor(sparse.indices, device=device).long()
-    dst = torch.tensor(sparse.dst_ids(), device=device).long()
-    cw = torch.tensor(sparse.weights, device=device)
-    lib = dist.scatter_reduce(0, dst, dist[src] + cw, "amin")
-    check(bitwise(lib, ref), "scatter_reduce yardstick differs")
-    b, by = bound_ms(n * K * 8 + n * 8, 2 * n * K)
-    out["ell_relax"] = dict(
-        shape=f"sparse-4M n={n} K={K}", bitwise_equal_plain=True,
-        max_abs_err=max_abs_err(got, ref),
-        ms=time_ms(lambda: ell_relax(dist, idx, w), KERNEL_REPS),
-        plain_ms=time_ms(lambda: ell_relax_ref(dist, idx, w), PLAIN_REPS),
-        library_ms=time_ms(
-            lambda: dist.scatter_reduce(0, dst, dist[src] + cw, "amin"),
-            PLAIN_REPS),
-        bound_ms=b, bound_by=by)
-    del idx, w
-
-    # frontier_relax on a 10% frontier of the same graph, with sentinels.
+    # frontier_relax on a 10% frontier of the sparse graph, with sentinels.
     ip_np, od_np, ow_np = sparse.out_csr()
     ip = torch.tensor(np.concatenate([ip_np, ip_np[-1:]]).astype(np.int32),
                       device=device)
@@ -223,48 +305,7 @@ def kernel_phase(graphs: dict, device, rng) -> dict:
             lambda: dist.scatter_reduce(0, fdst, dist[fsrc] + fw, "amin"),
             PLAIN_REPS),
         bound_ms=b, bound_by=by)
-    del ip, od, ow, arc_src, fsrc, fdst, fw
-
-    # bucket_relax on the hub graph's light in-ELL at its auto-Δ.
-    hub = graphs["hub"]
-    nh = hub.n
-    delta = auto_delta(hub)
-    lidx_np, lw_np = hub.light_in_ell(delta)
-    lidx = torch.tensor(lidx_np, device=device)
-    lw = torch.tensor(lw_np, device=device)
-    Kl = lidx.shape[1]
-    hdist = mixed_dist(nh, rng, device)
-    mid = torch.median(hdist[torch.isfinite(hdist)])
-    err = 0.0
-    for hi in (torch.tensor(0.0, device=device), mid,
-               torch.tensor(float("inf"), device=device)):
-        (gn, gg), (rn, rg) = (bucket_relax(hdist, lidx, lw, hi),
-                              bucket_relax_ref(hdist, lidx, lw, hi))
-        check(bitwise(gn, rn) and bool(gg) == bool(rg),
-              f"bucket_relax differs from bucket_relax_ref at hi={float(hi)}")
-        err = max(err, max_abs_err(gn, rn))
-    # the yardstick: the same light pull as one scatter-min over the light
-    # arcs (w <= delta); the in-bucket flag is not part of it, as the ELL
-    # padding is not part of ell_relax's
-    light = torch.tensor(hub.weights <= np.float32(delta), device=device)
-    lsrc = torch.tensor(hub.indices, device=device).long()[light]
-    ldst = torch.tensor(hub.dst_ids(), device=device).long()[light]
-    lwt = torch.tensor(hub.weights, device=device)[light]
-    lib = hdist.scatter_reduce(0, ldst, hdist[lsrc] + lwt, "amin")
-    check(bitwise(lib, bucket_relax_ref(hdist, lidx, lw, mid)[0]),
-          "light scatter_reduce yardstick differs")
-    b, by = bound_ms(nh * Kl * 8 + nh * 8 + 8, 2 * nh * Kl + 2 * nh)
-    out["bucket_relax"] = dict(
-        shape=f"hub-1M n={nh} K_light={Kl} delta={delta}",
-        bitwise_equal_plain=True, max_abs_err=err,
-        ms=time_ms(lambda: bucket_relax(hdist, lidx, lw, mid), KERNEL_REPS),
-        plain_ms=time_ms(lambda: bucket_relax_ref(hdist, lidx, lw, mid),
-                         PLAIN_REPS),
-        library_ms=time_ms(
-            lambda: hdist.scatter_reduce(0, ldst, hdist[lsrc] + lwt, "amin"),
-            PLAIN_REPS),
-        bound_ms=b, bound_by=by)
-    return out
+    return out, lines
 
 
 def dense_kernel_phase(g, device, rng) -> dict:
@@ -379,11 +420,11 @@ def stage_views(cg, device) -> dict:
 
     delta = auto_delta(cg)
     t0 = time.perf_counter()
-    cg.ell(), cg.out_csr(), cg.light_in_ell(delta), cg.heavy_out_csr(delta)
+    cg.dst_ids(), cg.out_csr(), cg.light_in_csr(delta), cg.heavy_out_csr(delta)
     out = {"host_views_s": time.perf_counter() - t0}
     for key, stage in (
-            ("stage_csr_ell_s", lambda: csr_operands(cg, device=device,
-                                                     with_ell=True)),
+            ("stage_csr_kernel_s", lambda: csr_operands(cg, device=device,
+                                                        with_in_csr=True)),
             ("stage_frontier_s", lambda: frontier_operands(cg,
                                                            device=device)),
             ("stage_delta_s", lambda: delta_operands(cg, delta,
@@ -428,9 +469,10 @@ def profile_phase(graphs: dict, walls: dict, device) -> list:
     return lines
 
 
-def engine_phase(graphs: dict, device, walls: dict) -> list:
+def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
     """The main path: every slice engine through shortest_paths.  Records
-    each single-source wall in ``walls``."""
+    each single-source wall in ``walls``, and the kernels' launches on each
+    graph (``wrappers`` maps a kernel to its wrapper)."""
     import numpy as np
 
     lines = []
@@ -443,6 +485,7 @@ def engine_phase(graphs: dict, device, walls: dict) -> list:
 
     for name, cg in graphs.items():
         lines.append(dict(graph=name, **stage_views(cg, device)))
+        before = {k: fn.launches for k, fn in wrappers.items()}
         res = {}
         for eng in SINGLE_ENGINES:
             res[eng], wall = run_engine(cg, 0, eng, device)
@@ -460,6 +503,9 @@ def engine_phase(graphs: dict, device, walls: dict) -> list:
             check((a.sweeps, a.edges_relaxed, a.converged)
                   == (b.sweeps, b.edges_relaxed, b.converged),
                   f"{name} {k}: counters differ from {plain}")
+        lines.append(dict(graph=name, launches={
+            k: fn.launches - before[k] for k, fn in wrappers.items()
+            if fn.launches > before[k]}))
         if name != "sparse":
             rel = check_oracle(name, base.dist, oracle(cg, [0]))
             lines.append(dict(oracle="scipy.sparse.csgraph.dijkstra",
@@ -660,7 +706,7 @@ def main() -> int:
 
     try:
         rng = np.random.default_rng(0)
-        kern = kernel_phase(graphs, device, rng)
+        kern, pull_lines = kernel_phase(graphs, device, rng)
         big = f"paper-sparse-{DENSE_SPARSE_N}"
         t0 = time.perf_counter()
         kern.update(dense_kernel_phase(dense[big], device, rng))
@@ -669,7 +715,7 @@ def main() -> int:
         for fn in wrappers.values():
             fn.launches = 0
         walls = {}
-        lines = engine_phase(graphs, device, walls)
+        lines = pull_lines + engine_phase(graphs, device, walls, wrappers)
         t0 = time.perf_counter()
         lines += dense_engine_phase(dense, device, walls, rng)
         dense_s["dense_engine_phase_s"] = time.perf_counter() - t0

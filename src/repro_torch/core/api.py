@@ -11,7 +11,7 @@ Ported engines (single device):
     bellman_kernel        same, CUDA min-plus kernel (kernels/sssp_relax)
     multisource           batched (S, n) dense fixpoint, plain sweep
     bellman_csr           fixpoint, O(m) scatter-min sweep on CSR
-    bellman_csr_kernel    same, padded-ELL CUDA kernel (kernels/csr_relax)
+    bellman_csr_kernel    same, incoming-CSR CUDA kernel (kernels/csr_relax)
     frontier              frontier-compacted sweeps, O(active out-degree)
     frontier_kernel       same, fused CUDA push kernel (kernels/frontier_relax)
     delta_stepping        light/heavy split, per-bucket light pull fixpoint
@@ -260,7 +260,7 @@ def shortest_paths(
                           sources=srcs.astype(np.int32), converged=c)
 
     use_kernel = engine == "bellman_csr_kernel"
-    ops = csr_operands(cg, device=dev, with_ell=use_kernel)
+    ops = csr_operands(cg, device=dev, with_in_csr=use_kernel)
     sweep_fn = None
     if use_kernel:
         from repro_torch.kernels.csr_relax.ops import make_csr_sweep_fn

@@ -10,7 +10,7 @@ incoming edges: min does not depend on order, so the result is exact and
 deterministic.  Vertices with no in-arcs keep their own label.
 
 The kernel path (engine ``bellman_csr_kernel``) swaps ``sweep_fn`` for the
-padded-ELL CUDA kernel in kernels/csr_relax.  The fixpoint loop reads one
+incoming-CSR CUDA kernel in kernels/csr_relax.  The fixpoint loop reads one
 flag back to the host per sweep.  ``sssp_multisource_csr`` is the batched
 twin: S sources share one gather of the edge arrays per sweep.
 """
@@ -23,19 +23,21 @@ import torch
 from repro_torch.core.multisource import init_dist
 
 
-def csr_operands(cg, *, device, with_ell: bool = False) -> dict:
+def csr_operands(cg, *, device, with_in_csr: bool = False) -> dict:
     """Stage a core.csr.CsrGraph's arrays on ``device``, as copies: src and
-    dst as int64 (scatter indices), w as float32.  ``with_ell`` adds the
-    padded-ELL view the ELL kernel consumes (int32 ids, float32 weights)."""
+    dst as int64 (scatter indices), w as float32.  ``with_in_csr`` adds the
+    int32 incoming CSR the relax kernel consumes with ``w``: row offsets
+    ``in_indptr`` (n+1,) and sources ``in_src`` (nnz,), both converted on
+    the device from the one copy of each host array."""
+    src = torch.tensor(cg.indices, device=device)
     ops = {
-        "src": torch.tensor(cg.indices, device=device).long(),
+        "src": src.long(),
         "dst": torch.tensor(cg.dst_ids(), device=device).long(),
         "w": torch.tensor(cg.weights, device=device),
     }
-    if with_ell:
-        ell_idx, ell_w = cg.ell()
-        ops["ell_idx"] = torch.tensor(ell_idx, device=device)
-        ops["ell_w"] = torch.tensor(ell_w, device=device)
+    if with_in_csr:
+        ops["in_indptr"] = torch.tensor(cg.indptr, device=device).int()
+        ops["in_src"] = src
     return ops
 
 
@@ -64,7 +66,7 @@ def sssp_bellman_csr(
     ``(dist, pred, num_sweeps, converged)``.
 
     ``sweep_fn(dist, ops) -> new_dist`` (self-distance folded in) lets the
-    ELL kernel replace the scatter-min path.  The loop runs while
+    relax kernel replace the scatter-min path.  The loop runs while
     ``sweeps < cap`` and the last sweep changed something; ``converged`` is
     True iff it stopped because nothing changed (False only under a tight
     ``max_sweeps=``: the labels may then sit above their fixpoint).

@@ -9,7 +9,9 @@ packages:
   Undirected graphs store both orientations.
 * **Padded ELL** views (``ell``, ``out_ell``, ``light_in_ell``): rows padded
   to a common width K (a multiple of 8) with (index 0, weight INF) slots that
-  can never win a min — the fixed-width rows the relax kernels consume.
+  can never win a min — the fixed-width rows the JAX package's TPU kernels
+  consume.  The CUDA kernels of this package read the CSR forms instead
+  (the incoming CSR itself, ``light_in_csr``, ``out_csr``).
 
 Device staging lives in the engine modules (core/bellman_csr.py and
 friends); staging copies (``torch.tensor`` / ``.to``), never aliases: every
@@ -116,7 +118,9 @@ class CsrGraph:
     def ell(self, width_multiple: int = 8) -> tuple[np.ndarray, np.ndarray]:
         """Padded incoming ELL: (n, K) int32 sources, (n, K) float32 weights,
         K = max in-degree rounded up to ``width_multiple``.  O(n · K): on a
-        hub-in-degree-skewed graph it re-approaches the dense matrix."""
+        hub-in-degree-skewed graph it re-approaches the dense matrix.  No
+        kernel path of this package reads it (the relax kernels take the
+        incoming CSR itself); it is kept for parity with the JAX package."""
         def build():
             return _build_ell(self.indptr, self.indices, self.weights,
                               self.n, width_multiple)
@@ -143,17 +147,27 @@ class CsrGraph:
             return _build_ell(indptr, out_dst, out_w, self.n, width_multiple)
         return self._memo(("_out_ell", width_multiple), build)
 
-    def light_in_ell(
-        self, delta: float, width_multiple: int = 8
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """Padded incoming ELL of the *light* arcs (weight <= Δ): the
-        Δ-stepping light phase's pull operand.  Memoized per (Δ, width)."""
+    def light_in_csr(
+        self, delta: float
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Incoming CSR of the *light* arcs (weight <= Δ):
+        ``(indptr, indices, weights)`` in the row order and within-row order
+        of the full incoming CSR — the Δ-stepping light phase's pull
+        operand.  Memoized per Δ."""
         def build():
             mask = np.asarray(self.weights) <= np.float32(delta)
             ldeg = _masked_row_counts(mask, self.indptr, self.n)
             lip = np.concatenate([[0], np.cumsum(ldeg)]).astype(np.int64)
-            return _build_ell(lip, self.indices[mask], self.weights[mask],
-                              self.n, width_multiple)
+            return _freeze(lip, self.indices[mask], self.weights[mask])
+        return self._memo(("_light_in_csr", float(delta)), build)
+
+    def light_in_ell(
+        self, delta: float, width_multiple: int = 8
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Padded ELL of :meth:`light_in_csr`.  Memoized per (Δ, width)."""
+        def build():
+            return _build_ell(*self.light_in_csr(delta), self.n,
+                              width_multiple)
         return self._memo(("_light_in_ell", float(delta), width_multiple),
                           build)
 

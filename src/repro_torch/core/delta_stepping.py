@@ -4,8 +4,10 @@ Kranjčević et al., arXiv:1604.02113).
 
 * **Light arcs** (weight <= Δ) are iterated to a per-bucket fixpoint by a
   **pull**: one pass computes every vertex's best incoming light candidate
-  from the padded light in-ELL (``CsrGraph.light_in_ell``) — a gather and a
-  row-min, no compaction, no scatter.
+  from the light incoming CSR (``CsrGraph.light_in_csr``) — a gather and a
+  segment-min, no compaction.  (The JAX engine pulls over the
+  padded light in-ELL, the TPU kernel's layout; the candidates are the
+  same.)
 * **Heavy arcs** (weight > Δ) cannot land inside the bucket they leave, so
   each settled bucket's heavy out-windows are pushed once, through the
   frontier engine's compaction (:func:`repro_torch.core.frontier.relax_active`).
@@ -36,6 +38,7 @@ from repro_torch.core.bellman_csr import (_start, csr_operands,
 from repro_torch.core.csr import _masked_row_counts
 from repro_torch.core.frontier import (make_flat_sweep_fn, relax_active,
                                        sweep_cap)
+from repro_torch.kernels.csr_relax.ref import row_ids, segment_relax_ref
 
 #: candidate quantiles of the weight distribution tried by auto_delta,
 #: below the w_max and all-light rungs.
@@ -85,16 +88,22 @@ def delta_operands(cg, delta: float, *, device) -> dict:
     """Stage a CsrGraph for the Δ-stepping engines: the incoming arrays of
     :func:`csr_operands` plus
 
-    * ``light_ell_idx`` / ``light_ell_w``: the (n, K_light) light in-ELL;
+    * ``light_indptr`` (n+1,) / ``light_src`` (m_light,) int32 and
+      ``light_w`` (m_light,) float32: the light incoming CSR (the kernel
+      pull's operand);
+    * ``light_dst`` (m_light,) int64: each light arc's row, expanded from
+      ``light_indptr`` on the device once (the plain pull's scatter index);
     * ``out_indptr`` / ``out_dst`` / ``out_w``: the heavy outgoing CSR, under
       the frontier engine's keys (indptr with the trailing sentinel entry)
       so ``relax_active`` consumes it unchanged;
     * ``m_light``: the light arc count (the edge charge of a pull pass).
     """
     ops = csr_operands(cg, device=device)
-    l_idx, l_w = cg.light_in_ell(delta)
-    ops["light_ell_idx"] = torch.tensor(l_idx, device=device)
-    ops["light_ell_w"] = torch.tensor(l_w, device=device)
+    lip, l_src, l_w = cg.light_in_csr(delta)
+    ops["light_indptr"] = torch.tensor(lip, device=device).int()
+    ops["light_src"] = torch.tensor(l_src, device=device)
+    ops["light_w"] = torch.tensor(l_w, device=device)
+    ops["light_dst"] = row_ids(ops["light_indptr"], int(l_src.shape[0]))
     hip, h_dst, h_w = cg.heavy_out_csr(delta)
     hip_s = np.concatenate([hip, hip[-1:]]).astype(np.int32)
     ops["out_indptr"] = torch.tensor(hip_s, device=device)
@@ -105,16 +114,17 @@ def delta_operands(cg, delta: float, *, device) -> dict:
 
 
 def make_light_pull_fn() -> Callable:
-    """The default light-phase pull.
+    """The default light-phase pull: a scatter-min over the light arcs
+    (the plain version of the ``bucket_relax`` kernel).
 
     The pull contract (shared with kernels/bucket_relax/ops.py):
-    ``pull(dist, ops, hi) -> (new, go)`` with ``new = min(dist,
-    min_k(dist[light_ell_idx[:, k]] + light_ell_w[:, k]))`` and ``go =
-    any((new < dist) & (new < hi))`` as a 0-dim bool tensor.
+    ``pull(dist, ops, hi) -> (new, go)`` with ``new[v] = min(dist[v],
+    min_e dist[light_src[e]] + light_w[e])`` over v's light in-arcs e and
+    ``go = any((new < dist) & (new < hi))`` as a 0-dim bool tensor.
     """
     def pull(dist, ops, hi):
-        cand = (dist[ops["light_ell_idx"]] + ops["light_ell_w"]).amin(dim=1)
-        new = torch.minimum(dist, cand)
+        new = segment_relax_ref(dist, ops["light_src"], ops["light_dst"],
+                                ops["light_w"])
         return new, ((new < dist) & (new < hi)).any()
     return pull
 

@@ -1,63 +1,81 @@
-// Padded-ELL relaxation sweep: the kernel of the bellman_csr_kernel engine.
+// Incoming-CSR relaxation sweep: the kernel of the bellman_csr_kernel engine.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/csr_relax/kernel.py:
 // ell_relax (body _ell_relax_kernel) and the self-distance fold its ops
 // wrapper applied after it:
 //
-//     out[v] = min(dist[v], min_k dist[idx[v, k]] + w[v, k])
+//     out[v] = min(dist[v], min_{e in row v} dist[src[e]] + w[e])
 //
-// Padding slots are (0, +inf) and never win.  Distances are >= 0 or +inf,
-// so fminf and IEEE float adds give exactly the plain version's values.
+// with row v the arcs [indptr[v], indptr[v+1]) of the incoming CSR.  The
+// TPU kernel read a padded ELL, fixed-width rows for its (8, 128) tiles;
+// this kernel reads the CSR itself, the same candidates without the
+// padding slots.  Distances are >= 0 or +inf, so no candidate is NaN,
+// fminf is exact and the min does not depend on order: the result is
+// bitwise the plain version's.
 //
-// Bound on the H100: memory bytes.  A launch streams the (n, K) ELL once
-// (8 bytes a slot: int32 index + f32 weight) and reads dist[v] and writes
-// out[v] (8 bytes a row).  The n*K gathers dist[idx] are served from L2,
-// which holds the whole dist vector up to n ~ 12M (50 MB).  At sparse-4M
-// (n = 4M, K = 24) that is ~800 MB, 0.24 ms at 3.35 TB/s; the arithmetic
-// (one add and one min a slot) is far below the f32 peak.
+// Bound on the H100: memory bytes.  A launch reads each arc once (int32
+// source + f32 weight, 8 bytes), the row offsets (4 bytes a row) and
+// dist[v], and writes out[v] (8 bytes a row).  The gathers dist[src] are
+// served from L2, which holds the whole dist vector up to n ~ 12M (50 MB).
+// At sparse-4M (n = 4M, 24.0M arcs) that is 240 MB, 0.072 ms at
+// 3.35 TB/s; the padded ELL there (K = 24 for a mean in-degree of 6) was
+// 800 MB.  One add and one min an arc are far below the f32 peak.
 //
-// Design: one thread per row.  The TPU kernel kept dist resident in VMEM
-// and walked K in sequential grid steps; here blocks run in parallel, with
-// no order, and each thread walks its own row in 16-byte vector loads (the
-// wrapper guarantees K % 4 == 0 and 16-byte aligned rows), so the ELL is
-// read in full sectors through L1 over the row loop.  The output is a
-// separate buffer: every thread reads the snapshot (Jacobi sweep).  No
-// atomics, no shared memory.
+// Design: a group of G lanes a row, G a power of two <= 32 that the
+// wrapper picks from the mean degree (the largest power of two below it:
+// 2 on the road grid, 4 on sparse-4M and hub-1M).  Lane j of the group
+// reads arcs indptr[v] + j, + G, ...; consecutive rows' arcs are adjacent
+// in the CSR, so one warp load covers consecutive arcs in full sectors.
+// The group's min is taken with __shfl_xor_sync, and its first lane folds
+// in dist[v] and writes out[v].  The blocks stride over the rows, as many
+// blocks as the card holds at once.  The output is a separate buffer:
+// every lane reads the snapshot (Jacobi sweep).  No atomics, no shared
+// memory.
+//
+// Long rows: a row of more than csr_pull::kLongRow (32) arcs (the 16 hubs
+// of hub-1M have ~520 in-arcs, against a mean of 6) would hold its whole
+// warp for deg / G steps.  Its group skips it instead, and once the groups
+// are done the warp takes its long rows one at a time with all 32 lanes (a
+// ballot over the warp), deg / 32 steps each.  No second launch and no row
+// list is needed.
+//
+// tools/csr_pull_sweep.py times this kernel at every G and without the
+// long-row path; PERF.md section 6 gives what it measured on the H100 at
+// the timed shapes, with the run it came from.
 #include <cuda_runtime.h>
+
+#include "csr_pull.cuh"
 
 namespace {
 
+template <int G>
 __global__ void ell_relax_kernel(const float* __restrict__ dist,
-                                 const int4* __restrict__ idx,
-                                 const float4* __restrict__ w,
-                                 float* __restrict__ out,
-                                 long long n, int k4) {
-  long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (v >= n) return;
-  const int4* irow = idx + v * k4;
-  const float4* wrow = w + v * k4;
-  float best = dist[v];
-  for (int q = 0; q < k4; ++q) {
-    int4 i = __ldg(irow + q);
-    float4 c = __ldg(wrow + q);
-    best = fminf(best, __ldg(dist + i.x) + c.x);
-    best = fminf(best, __ldg(dist + i.y) + c.y);
-    best = fminf(best, __ldg(dist + i.z) + c.z);
-    best = fminf(best, __ldg(dist + i.w) + c.w);
+                                 const int* __restrict__ indptr,
+                                 const int* __restrict__ src,
+                                 const float* __restrict__ w,
+                                 float* __restrict__ out, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  // the loop bound is uniform across the block, so every lane of a warp
+  // calls pull_row together
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x;
+       t < n * G; t += stride) {
+    const long long v = (t + threadIdx.x) / G;
+    const bool row = v < n;
+    const float best = csr_pull::pull_row<G>(dist, indptr, src, w, v, row);
+    if (row && (threadIdx.x & (G - 1)) == 0)
+      out[v] = fminf(__ldg(dist + v), best);
   }
-  out[v] = best;
 }
 
 }  // namespace
 
-extern "C" int ell_relax_launch(const float* dist, const int* idx,
-                                const float* w, float* out, long long n,
-                                int K, void* stream) {
-  constexpr int kThreads = 256;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  ell_relax_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      dist, reinterpret_cast<const int4*>(idx),
-      reinterpret_cast<const float4*>(w), out, n, K / 4);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int ell_relax_launch(const float* dist, const int* indptr,
+                                const int* src, const float* w, float* out,
+                                long long n, int group, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  return csr_pull::with_group(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    return csr_pull::launch<ell_relax_kernel<G>, G>(n, s, dist, indptr, src,
+                                                    w, out, n);
+  });
 }

@@ -1,16 +1,18 @@
-"""Helpers shared by the kernel packages: padding, device dispatch, and the
-build and load of the hand-written CUDA kernels.
+"""Helpers shared by the kernel packages: device dispatch, input checks,
+the lane-group choice of the CSR pull kernels, and the build and load of
+the hand-written CUDA kernels.
 
 Device dispatch takes the place of the JAX package's ``auto_interpret``: a
 wrapper given CUDA tensors launches its kernel (or raises), a wrapper given
 CPU tensors runs its plain PyTorch version.  There is no fallback from one to
 the other.
 
-Each kernel is one CUDA C++ source ``csrc/<name>.cu`` with a plain C entry
-``<name>_launch`` that returns ``cudaGetLastError()``.  It is compiled with
-``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root, on
-first use, under a name keyed by a hash of the source and the flags, and
-loaded with ``ctypes``.  Nothing is compiled at import time.
+Each kernel is one CUDA C++ source ``csrc/<name>.cu`` (which may include
+the ``csrc/*.cuh`` headers) with a plain C entry ``<name>_launch`` that
+returns ``cudaGetLastError()``.  It is compiled with ``nvcc`` for
+``sm_90a`` into ``build/kernels/`` at the repository root, on first use,
+under a name keyed by a hash of the sources and the flags, and loaded with
+``ctypes``.  Nothing is compiled at import time.
 """
 from __future__ import annotations
 
@@ -30,19 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 
-def aligned(n: int, block: int) -> int:
-    return ((n + block - 1) // block) * block
-
-
-def pad_to(x: torch.Tensor, size: int, dim: int, fill) -> torch.Tensor:
-    """Pad ``x`` along ``dim`` up to ``size`` with ``fill`` (a copy only
-    when padding is needed)."""
-    pad = size - x.shape[dim]
-    if pad == 0:
-        return x
-    shape = list(x.shape)
-    shape[dim] = pad
-    return torch.cat([x, x.new_full(shape, fill)], dim=dim)
+INT32_MAX = 2**31 - 1
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -75,10 +65,28 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_aligned(t: torch.Tensor, name: str, bytes_: int = 16) -> None:
-    """Raise unless ``t`` starts on a ``bytes_`` boundary (vector loads)."""
-    if t.data_ptr() % bytes_:
-        raise ValueError(f"{name} must be {bytes_}-byte aligned")
+def check_csr(dist: torch.Tensor, indptr: torch.Tensor,
+              indices: torch.Tensor, weights: torch.Tensor) -> None:
+    """Raise unless ``(indptr, indices, weights)`` is an int32 / int32 /
+    float32 CSR of ``dist``'s n rows whose arc count fits in int32 (the
+    CUDA pull kernels index arcs with 32 bits)."""
+    n, m = indptr.shape[0] - 1, indices.shape[0]
+    check(dist, "dist", torch.float32, (n,))
+    check(indptr, "indptr", torch.int32, (n + 1,))
+    check(indices, "indices", torch.int32, (m,))
+    check(weights, "weights", torch.float32, (m,))
+    if m > INT32_MAX:
+        raise ValueError(f"{m} arcs do not fit in int32 offsets")
+
+
+def lane_group(n: int, m: int) -> int:
+    """Lanes a row for the CSR pull kernels: the largest power of two
+    below the mean degree ``m / n`` (1 where the mean is at most 1), at
+    most a warp (32)."""
+    g = 1
+    while g < 32 and 2 * g * n < m:
+        g *= 2
+    return g
 
 
 def _nvcc() -> str:
@@ -91,8 +99,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library of ``csrc/<name>.cu`` is built, keyed by a
-    hash of the source and the compiler flags."""
+    hash of the source, the headers beside it and the compiler flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,31 +1,30 @@
-"""Public wrappers of the padded-ELL relax kernel.
+"""Public wrappers of the incoming-CSR relax kernel.
 
-``csr_relax_sweep`` pads the ELL width to a multiple of 8 with (0, INF)
-slots — which never win a min, the paper's unreachable-padding argument —
-and runs the kernel, whose output already folds in ``min(dist, ·)``.  Rows
-need no padding: the kernel masks its ragged last block itself.
+The CSR has no width to pad: ``csr_relax_sweep`` hands the row offsets,
+sources and weights to the kernel as they are, and the kernel's output
+already folds in ``min(dist, ·)``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import aligned, pad_to
 from repro_torch.kernels.csr_relax import kernel as K
 
 
-def csr_relax_sweep(dist: torch.Tensor, ell_idx: torch.Tensor,
-                    ell_w: torch.Tensor) -> torch.Tensor:
-    """One sparse relaxation sweep through the ELL kernel; bitwise equal to
-    ref.ell_relax_ref.  dist (n,), ell_idx/ell_w (n, K) -> (n,)."""
-    width = aligned(max(ell_idx.shape[1], 1), 8)
-    idx = pad_to(ell_idx, width, 1, 0)
-    w = pad_to(ell_w, width, 1, float("inf"))
-    return K.ell_relax(dist, idx, w)
+def csr_relax_sweep(dist: torch.Tensor, indptr: torch.Tensor,
+                    indices: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """One sparse relaxation sweep through the kernel over the incoming
+    CSR; bitwise equal to ref.ell_relax_ref on the ELL of the same arcs.
+    dist (n,), indptr (n+1,), indices/weights (m,) -> (n,)."""
+    return K.ell_relax(dist, indptr, indices, weights)
 
 
 def make_csr_sweep_fn():
     """``sweep_fn(dist, ops)`` for core.bellman_csr.sssp_bellman_csr,
-    reading the operands' ELL view."""
+    reading the operands' int32 incoming CSR (``csr_operands(...,
+    with_in_csr=True)``)."""
     def sweep(dist, ops):
-        return csr_relax_sweep(dist, ops["ell_idx"], ops["ell_w"])
+        return csr_relax_sweep(dist, ops["in_indptr"], ops["in_src"],
+                               ops["w"])
     return sweep

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the padded-ELL relax kernel.
+"""Plain PyTorch versions of the relax sweep.
 
 Min-plus over an explicit edge list is exact in f32 (adds and compares
-only), so the CUDA kernel must agree with these bitwise, and the ELL and
-flat-CSR forms agree with each other: they enumerate the same candidates.
+only), so the CUDA kernel must agree with these bitwise, and the ELL, CSR
+and flat-arc forms agree with each other: they enumerate the same
+candidates.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch
 
 def ell_relax_ref(dist: torch.Tensor, ell_idx: torch.Tensor,
                   ell_w: torch.Tensor) -> torch.Tensor:
-    """One sweep over padded-ELL rows. (n,), (n, K), (n, K) -> (n,).
+    """One sweep over padded-ELL rows (the TPU kernel's operand).
+    (n,), (n, K), (n, K) -> (n,).
 
     new[v] = min(dist[v], min_k dist[ell_idx[v, k]] + ell_w[v, k])
 
@@ -19,6 +21,25 @@ def ell_relax_ref(dist: torch.Tensor, ell_idx: torch.Tensor,
     """
     cand = (dist[ell_idx] + ell_w).amin(dim=1)
     return torch.minimum(dist, cand)
+
+
+def ell_relax_csr_ref(dist: torch.Tensor, indptr: torch.Tensor,
+                      indices: torch.Tensor,
+                      weights: torch.Tensor) -> torch.Tensor:
+    """The same sweep over the incoming CSR (the CUDA kernel's operand): a
+    segment-min of the arcs' candidates between the row offsets, folded
+    with the self-distance.  (n,), (n+1,), (m,), (m,) -> (n,)."""
+    return segment_relax_ref(dist, indices,
+                             row_ids(indptr, indices.shape[0]), weights)
+
+
+def row_ids(indptr: torch.Tensor, m: int) -> torch.Tensor:
+    """(m,) int64 row of each arc of a CSR with row offsets ``indptr``
+    (``m`` given, so no device sync)."""
+    n = indptr.shape[0] - 1
+    return torch.repeat_interleave(torch.arange(n, device=indptr.device),
+                                   (indptr[1:] - indptr[:-1]).long(),
+                                   output_size=m)
 
 
 def segment_relax_ref(dist: torch.Tensor, src_ids: torch.Tensor,

@@ -1,10 +1,12 @@
-"""Port parity for the CSR fixpoint engines and the padded-ELL kernel:
+"""Port parity for the CSR fixpoint engines and the relax kernel's wrappers:
 repro_torch (device="cpu", plain paths) against the JAX package, bitwise.
 
 Inputs come from numpy seeds; graphs built by the JAX package are carried
 into the port with ``repro_torch.core.csr.from_arrays``.  JAX kernel
 engines run in Pallas interpret mode, as the JAX package's own tests run
-them on the CPU, and are kept few and small."""
+them on the CPU, and are kept few and small.  The JAX kernel reads a padded
+ELL and the port's an incoming CSR: a random ELL case is handed to the port
+as the CSR of its finite slots, the same candidates."""
 import numpy as np
 import pytest
 import torch
@@ -62,6 +64,15 @@ def ell_case(rng, n, K, fill):
     return idx, w
 
 
+def ell_to_csr(idx, w):
+    """The int32 CSR (indptr, indices, weights) of an ELL's finite slots,
+    row by row in slot order, as torch tensors."""
+    keep = np.isfinite(w)
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+    return (torch.tensor(indptr.astype(np.int32)), torch.tensor(idx[keep]),
+            torch.tensor(w[keep]))
+
+
 @pytest.mark.parametrize("n,K,fill", [(37, 5, 0.2), (301, 200, 0.5),
                                       (1, 8, 0.0), (1000, 24, 0.7)])
 def test_csr_relax_ops_bitwise_vs_jax(n, K, fill):
@@ -70,8 +81,7 @@ def test_csr_relax_ops_bitwise_vs_jax(n, K, fill):
     idx, w = ell_case(rng, n, K, fill)
     want = np.asarray(j_ops.csr_relax_sweep(
         jnp.asarray(d), jnp.asarray(idx), jnp.asarray(w), interpret=True))
-    got = t_ops.csr_relax_sweep(torch.tensor(d), torch.tensor(idx),
-                                torch.tensor(w))
+    got = t_ops.csr_relax_sweep(torch.tensor(d), *ell_to_csr(idx, w))
     assert got.numpy().tobytes() == want.tobytes()
     ref = t_ref.ell_relax_ref(torch.tensor(d), torch.tensor(idx),
                               torch.tensor(w))
@@ -94,24 +104,28 @@ def test_segment_relax_ref_matches_jax_and_ell():
     ell = t_ref.ell_relax_ref(torch.tensor(d), torch.tensor(idx),
                               torch.tensor(w))
     assert ell.numpy().tobytes() == want.tobytes()
+    csr = t_ref.ell_relax_csr_ref(
+        torch.tensor(d), torch.tensor(cg.indptr.astype(np.int32)),
+        torch.tensor(src), torch.tensor(cg.weights))
+    assert csr.numpy().tobytes() == want.tobytes()
 
 
 def test_ell_relax_wrapper_cpu_uses_plain_version_and_checks_inputs():
     rng = np.random.default_rng(3)
-    idx, w = ell_case(rng, 50, 8, 0.3)
+    ip, idx, w = ell_to_csr(*ell_case(rng, 50, 8, 0.3))
     d = torch.tensor(mixed_dist(rng, 50))
     before = t_kernel.ell_relax.launches
-    got = t_kernel.ell_relax(d, torch.tensor(idx), torch.tensor(w))
+    got = t_kernel.ell_relax(d, ip, idx, w)
     assert t_kernel.ell_relax.launches == before      # no kernel on the CPU
-    assert torch.equal(got, t_ref.ell_relax_ref(d, torch.tensor(idx),
-                                                torch.tensor(w)))
+    assert torch.equal(got, t_ref.ell_relax_csr_ref(d, ip, idx, w))
     with pytest.raises(TypeError):
-        t_kernel.ell_relax(d.double(), torch.tensor(idx), torch.tensor(w))
+        t_kernel.ell_relax(d.double(), ip, idx, w)
+    with pytest.raises(TypeError):
+        t_kernel.ell_relax(d, ip.long(), idx, w)
     with pytest.raises(ValueError):
-        t_kernel.ell_relax(d[:49], torch.tensor(idx), torch.tensor(w))
+        t_kernel.ell_relax(d[:49], ip, idx, w)
     with pytest.raises(ValueError):
-        t_kernel.ell_relax(d, torch.tensor(idx).t().contiguous().t(),
-                           torch.tensor(w))
+        t_kernel.ell_relax(d, ip, idx, torch.stack([w, w], 1)[:, 0])
 
 
 CORPORA = {

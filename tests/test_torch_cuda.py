@@ -1,7 +1,9 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
 bitwise, and the kernel engines on the GPU against the CPU path.  The
 dense kernels run at n in {1, 37, 255, 4097} and S in {1, 3, 8, 9}, so
-ragged tails, u-split boundaries and ragged source tiles are covered.
+ragged tails, u-split boundaries and ragged source tiles are covered; the
+CSR pull kernels at every lane-group width, on graphs with rows that
+their whole-warp path takes.
 
 Marked ``cuda``; every test skips without a CUDA GPU.  On a machine with
 one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -14,10 +16,13 @@ from repro_torch.core import csr as TC
 from repro_torch.core import frontier as TF
 from repro_torch.core import graph as TG
 from repro_torch.core.api import shortest_paths
+from repro_torch.kernels import common
 from repro_torch.kernels.bucket_relax.kernel import bucket_relax
-from repro_torch.kernels.bucket_relax.ref import bucket_relax_ref
+from repro_torch.kernels.bucket_relax.ref import (bucket_relax_csr_ref,
+                                                  bucket_relax_ref)
 from repro_torch.kernels.csr_relax.kernel import ell_relax
-from repro_torch.kernels.csr_relax.ref import ell_relax_ref
+from repro_torch.kernels.csr_relax.ref import (ell_relax_csr_ref,
+                                               ell_relax_ref)
 from repro_torch.kernels.frontier_relax.kernel import frontier_relax
 from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
 from repro_torch.kernels.sssp_relax.kernel import (relax_matmul, relax_matvec,
@@ -47,18 +52,65 @@ def _dist(n, seed, device):
     return torch.tensor(d, device=device)
 
 
+def _csr(indptr, indices, weights, device):
+    return (torch.tensor(np.asarray(indptr, np.int32), device=device),
+            torch.tensor(indices, device=device),
+            torch.tensor(weights, device=device))
+
+
 @pytest.mark.parametrize("n", [20, 255, 100_001])
 def test_ell_and_bucket_kernels_bitwise_vs_plain(cuda, n):
+    """Both CSR pull kernels against their plain CSR versions and the ELL
+    plain versions.  Hub graphs: at n = 100_001 the 16 hubs have rows of
+    more than 256 in-arcs, which the kernels give to a whole warp."""
     cg = TC.skewed_hub_csr_graph(n, seed=n)
+    if n > 100_000:
+        assert int(np.diff(cg.indptr).max()) > 256
+    csr = _csr(cg.indptr, cg.indices, cg.weights, cuda)
     idx, w = (torch.tensor(a, device=cuda) for a in cg.ell())
     d = _dist(cg.n, n, cuda)
     before = ell_relax.launches
-    assert _bits(ell_relax(d, idx, w), ell_relax_ref(d, idx, w))
+    got = ell_relax(d, *csr)
     assert ell_relax.launches == before + 1
+    assert _bits(got, ell_relax_csr_ref(d, *csr))
+    assert _bits(got, ell_relax_ref(d, idx, w))
     for hi in (0.0, 500.0, float("inf")):
         h = torch.tensor(hi, device=cuda)
-        (a, ga), (b, gb) = bucket_relax(d, idx, w, h), bucket_relax_ref(
-            d, idx, w, h)
+        (a, ga), (b, gb) = bucket_relax(d, *csr, h), bucket_relax_csr_ref(
+            d, *csr, h)
+        assert _bits(a, b) and bool(ga) == bool(gb)
+        c, gc = bucket_relax_ref(d, idx, w, h)
+        assert _bits(a, c) and bool(ga) == bool(gc)
+
+
+def _random_csr(n, mean, seed):
+    """A random CSR of n rows whose mean degree is ``mean``, 8 of its rows
+    with 300 to 600 arcs (more than the kernels' 32-arc long-row cut)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 2 * mean + 1, n)
+    deg[rng.choice(n, 8, replace=False)] = rng.integers(300, 601, 8)
+    deg = np.maximum(deg - (deg.sum() - int(mean * n)) // n, 0)
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    m = int(indptr[-1])
+    return (indptr, rng.integers(0, n, m).astype(np.int32),
+            rng.uniform(0.5, 100.0, m).astype(np.float32))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+def test_csr_pull_kernels_every_lane_group(cuda, group):
+    """Every lane-group width the kernels take, each picked by the
+    wrappers from a graph whose mean degree selects it; every graph has
+    rows longer than 32 arcs, which the kernels give to a whole warp."""
+    ip, src, w = _random_csr(20_011, 1.5 * group, seed=group)
+    assert common.lane_group(ip.shape[0] - 1, src.shape[0]) == group
+    assert int(np.diff(ip).max()) >= 300
+    csr = _csr(ip, src, w, cuda)
+    d = _dist(ip.shape[0] - 1, group, cuda)
+    assert _bits(ell_relax(d, *csr), ell_relax_csr_ref(d, *csr))
+    for hi in (0.0, 50.0, float("inf")):
+        h = torch.tensor(hi, device=cuda)
+        (a, ga), (b, gb) = bucket_relax(d, *csr, h), bucket_relax_csr_ref(
+            d, *csr, h)
         assert _bits(a, b) and bool(ga) == bool(gb)
 
 

@@ -1,6 +1,8 @@
 """Port parity for the Δ-stepping engines and the fused light-bucket pull
-kernel: repro_torch (device="cpu", plain paths) against the JAX package,
-bitwise — including the Δ choice, the phase counts and the edge counter."""
+kernel's wrappers: repro_torch (device="cpu", plain paths) against the JAX
+package, bitwise — including the Δ choice, the phase counts and the edge
+counter.  The JAX kernel reads a padded light ELL, the port's a light
+incoming CSR of the same arcs."""
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,8 @@ from repro_torch.core import csr as TC
 from repro_torch.core import delta_stepping as TD
 from repro_torch.kernels.bucket_relax import kernel as t_kernel
 from repro_torch.kernels.bucket_relax import ops as t_ops
-from repro_torch.kernels.bucket_relax.ref import bucket_relax_ref
+from repro_torch.kernels.bucket_relax.ref import (bucket_relax_csr_ref,
+                                                  bucket_relax_ref)
 
 
 @pytest.fixture(autouse=True)
@@ -66,6 +69,8 @@ def test_delta_profile_matches_jax(corpus):
 @pytest.mark.parametrize("n,K,fill", [(37, 5, 0.2), (301, 200, 0.5),
                                       (1000, 24, 0.7)])
 def test_bucket_relax_ops_bitwise_vs_jax(n, K, fill):
+    """The JAX kernel on a random padded ELL; the port's on the CSR of its
+    finite slots (the same candidates)."""
     rng = np.random.default_rng(n)
     d = rng.uniform(0.0, 500.0, n).astype(np.float32)
     d[rng.random(n) < 0.3] = np.inf
@@ -73,33 +78,41 @@ def test_bucket_relax_ops_bitwise_vs_jax(n, K, fill):
     w = rng.uniform(1.0, 100.0, (n, K)).astype(np.float32)
     pad = rng.random((n, K)) < fill
     idx[pad], w[pad] = 0, np.inf
+    keep = ~pad
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+    csr = (torch.tensor(indptr.astype(np.int32)), torch.tensor(idx[keep]),
+           torch.tensor(w[keep]))
     mid = float(np.median(d[np.isfinite(d)]))
     for hi in (0.0, mid, float("inf")):
         want, wgo = j_ops.bucket_relax_block(
             jnp.asarray(d), jnp.asarray(idx), jnp.asarray(w),
             jnp.float32(hi), interpret=True)
         got, go = t_ops.bucket_relax_block(
-            torch.tensor(d), torch.tensor(idx), torch.tensor(w),
-            torch.tensor(hi, dtype=torch.float32))
+            torch.tensor(d), *csr, torch.tensor(hi, dtype=torch.float32))
         assert got.numpy().tobytes() == np.asarray(want).tobytes()
         assert go.dtype == torch.bool and bool(go) == bool(wgo)
 
 
 def test_bucket_relax_wrapper_cpu_uses_plain_version_and_checks_inputs():
     rng = np.random.default_rng(4)
-    idx = torch.tensor(rng.integers(0, 40, (40, 8)).astype(np.int32))
-    w = torch.tensor(rng.uniform(1, 9, (40, 8)).astype(np.float32))
+    ip = torch.arange(0, 41 * 8, 8, dtype=torch.int32)       # 40 rows of 8
+    idx = torch.tensor(rng.integers(0, 40, 320).astype(np.int32))
+    w = torch.tensor(rng.uniform(1, 9, 320).astype(np.float32))
     d = torch.tensor(rng.uniform(0, 50, 40).astype(np.float32))
     hi = torch.tensor(25.0)
     before = t_kernel.bucket_relax.launches
-    got = t_kernel.bucket_relax(d, idx, w, hi)
+    got = t_kernel.bucket_relax(d, ip, idx, w, hi)
     assert t_kernel.bucket_relax.launches == before
-    want = bucket_relax_ref(d, idx, w, hi)
+    want = bucket_relax_csr_ref(d, ip, idx, w, hi)
     assert torch.equal(got[0], want[0]) and bool(got[1]) == bool(want[1])
+    ell = bucket_relax_ref(d, idx.view(40, 8), w.view(40, 8), hi)
+    assert torch.equal(got[0], ell[0]) and bool(got[1]) == bool(ell[1])
     with pytest.raises(TypeError):
-        t_kernel.bucket_relax(d, idx, w, hi.double())
+        t_kernel.bucket_relax(d, ip, idx, w, hi.double())
     with pytest.raises(ValueError):
-        t_kernel.bucket_relax(d, idx, w, hi.view(1))
+        t_kernel.bucket_relax(d, ip, idx, w, hi.view(1))
+    with pytest.raises(ValueError):
+        t_kernel.bucket_relax(d, ip[:-1], idx, w, hi)
 
 
 # every corpus at auto-Δ and Δ = 40; the small ones also at a narrow and an
