@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
+Builds the port's CUDA kernels from ``src/repro_torch/csrc``, measures
+the card's float32 add and min issue rates (``tools/min_plus_rate.py``;
+the kernels' operation bounds use them) and then:
 
 1. holds each kernel against its plain PyTorch version, bitwise, at the
    shapes the main path gives it, and times the kernel, the plain version
@@ -11,7 +13,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    function, with CUDA events (medians).  The two CSR pull kernels
    (``ell_relax``, ``bucket_relax``) each run at sparse-4M, hub-1M (full
    and light incoming CSR) and road-4M, are also held against the ELL
-   plain versions on the padded ELL of the same arcs;
+   plain versions on the padded ELL of the same arcs; the in-place
+   ``frontier_relax`` runs on a random sparse-4M frontier and on the real
+   frontiers of the road-4M and hub-1M solves halfway, its fallen-label
+   mask held too;
 2. drives the main path — ``repro_torch.core.api.shortest_paths`` on the
    device — over every single-device CSR engine on sparse-4M
    (``sparse_csr_graph``), road-4M (``road_like_csr_graph``, a 2000 × 2000
@@ -36,8 +41,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
    kernel, and one frontier-masked sweep; the serial / ``bellman_kernel``
    wall ratio is the paper's headline comparison on this card.
 
-It prints the card, one JSON line per pull-kernel shape and per engine
-run, one ``{"kernels": ...}`` line, and last ``{"ok": true, "device":
+It prints the card, the measured rates, one JSON line per CSR-kernel
+shape, per engine run and per graph's (and the target query's) kernel
+launches, one ``{"kernels": ...}`` line, and last ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero before that line; so does a
 machine without a CUDA GPU.
 """
@@ -51,11 +57,16 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
 
-#: H100 SXM data sheet: HBM3 bandwidth (bytes/s) and float32 rate outside
-#: the tensor cores (operations/s), at the full 700 W power limit.
+#: H100 SXM data sheet: HBM3 bandwidth (bytes/s) at the full 700 W power
+#: limit.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+#: the card's float32 issue rates, measured at the start of every run by
+#: tools/min_plus_rate.py (its ``rates``): every kernel here does one add
+#: and one min (``acc = fminf(acc, d + w)``) an element, so its operations
+#: are bounded by those pairs over ``add_min_pairs_per_s``.
+RATES: dict = {}
 
 SPARSE_N = 4_000_000
 ROAD_N = 4_000_000
@@ -66,6 +77,10 @@ DENSE_DENSE_N = 2000         # the paper's Table I, largest graph
 SOURCES = 8
 KERNEL_REPS = 20
 PLAIN_REPS = 5
+#: device clock cycles of the spin before each timed call (about 1 ms on an
+#: H100 80GB HBM3 at 700 W, whose SM clock peaks at 1.98 GHz), longer than
+#: the host takes to queue one wrapper call
+SPIN_CYCLES = 2_000_000
 
 KERNELS = {
     # name: (repository source, the TPU kernel it replaces)
@@ -97,15 +112,25 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, reset=None) -> float:
     """Median device time of ``fn()`` in ms, by CUDA events, after one
-    warm-up call."""
+    warm-up call.  ``reset()``, where given, runs before every call outside
+    the events: it restores what an in-place ``fn`` wrote, so every call
+    does the first call's work.  A spin of SPIN_CYCLES on the device comes
+    before the start event, so the host has queued ``fn``'s launches by the
+    time it fires: the events time the device, not the wrapper's host
+    work."""
     import torch
 
+    if reset is not None:
+        reset()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if reset is not None:
+            reset()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -116,11 +141,12 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, pairs: float) -> tuple[float, str]:
     """Least time for the work on an H100: the larger of bytes over the HBM
-    rate and float32 operations over the f32 rate."""
+    rate and float32 add + min pairs over the card's measured pair rate
+    (``RATES``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = pairs / RATES["add_min_pairs_per_s"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -239,8 +265,8 @@ def pull_phase(graphs: dict, device, rng) -> tuple[dict, list]:
                                                               mid),
                                  8)}           # hi and the flag
         for name, (fn, plain, extra) in runs.items():
-            b, by = bound_ms(m * 8 + (n + 1) * 4 + n * 8 + extra, 2 * m + n)
-            ell_b, _ = bound_ms(n * K * 8 + n * 8 + extra, 2 * n * K + n)
+            b, by = bound_ms(m * 8 + (n + 1) * 4 + n * 8 + extra, m + n)
+            ell_b, _ = bound_ms(n * K * 8 + n * 8 + extra, n * K + n)
             line = dict(
                 shape=f"{shape} n={n} arcs={m} K={K}",
                 bitwise_equal_plain=True, bitwise_equal_ell_ref=True,
@@ -260,52 +286,142 @@ def pull_phase(graphs: dict, device, rng) -> tuple[dict, list]:
     return main, lines
 
 
-def kernel_phase(graphs: dict, device, rng) -> tuple[dict, list]:
-    """Each CSR-path kernel against its plain version at the main path's
-    shapes: the two pull kernels (:func:`pull_phase`) and frontier_relax."""
-    import numpy as np
+def mid_run_frontier(cg, device) -> tuple:
+    """The state of the ``frontier_kernel`` solve of ``cg`` from vertex 0
+    halfway: a first solve counts its sweeps, a second stops at half of
+    them and keeps the labels and the compacted frontier its next sweep
+    is given.  Returns (operands, dist, fids, that sweep's index, sweeps)."""
+    from repro_torch.core.frontier import frontier_operands, sssp_frontier
+    from repro_torch.kernels.frontier_relax.ops import make_frontier_sweep_fn
+
+    ops = frontier_operands(cg, device=device)
+    push = make_frontier_sweep_fn()
+    total = sssp_frontier(ops, 0, n=cg.n, sweep_fn=push)[2]
+    half, seen = total // 2, []
+
+    def sweep(dist, fids, *rest):
+        if len(seen) == half:
+            seen.append((dist.clone(), fids.clone()))
+        else:
+            seen.append(None)
+        push(dist, fids, *rest)
+
+    sssp_frontier(ops, 0, n=cg.n, sweep_fn=sweep, max_sweeps=half + 1)
+    dist, fids = seen[half]
+    return ops, dist, fids, half, total
+
+
+def frontier_shapes(graphs: dict, device, rng) -> list:
+    """frontier_relax's inputs at the main path's shapes, as (name,
+    frontier operands, dist, fids): a 10% random frontier of sparse-4M
+    with seven compaction sentinels (the shape of earlier runs), and the
+    real frontiers of the road-4M and hub-1M solves halfway
+    (:func:`mid_run_frontier`; road-4M's 4120 sweeps carry most
+    launches)."""
     import torch
 
+    from repro_torch.core.frontier import frontier_operands
+
+    sparse = graphs["sparse"]
+    n = sparse.n
+    on = torch.tensor(rng.random(n) < 0.1, device=device)
+    shapes = [("sparse-4M 10% frontier", frontier_operands(sparse,
+                                                           device=device),
+               mixed_dist(n, rng, device),
+               torch.cat([torch.nonzero(on).flatten(),
+                          torch.full((7,), n, device=device)]))]
+    for name in ("road", "hub"):
+        ops, dist, fids, k, total = mid_run_frontier(graphs[name], device)
+        shapes.append((f"{name}-{graphs[name].n // 1_000_000}M frontier at "
+                       f"sweep {k} of {total}", ops, dist, fids))
+    return shapes
+
+
+def frontier_phase(graphs: dict, device, rng) -> tuple[dict, list]:
+    """``frontier_relax`` at the main path's shapes
+    (:func:`frontier_shapes`).  Each is held bitwise against the plain
+    version, labels and fallen-label mask, and the mask against ``new <
+    snapshot``; then timed with its plain
+    version and the ``scatter_reduce_`` yardstick over the frontier's arcs,
+    each call on the same input: the kernel and the plain version work in
+    place, so dist and the mask are restored before every call, outside the
+    events, and the yardstick writes into a tensor allocated once, restored
+    the same way.  The yardstick computes no fallen-label mask.  The bound
+    counts what the call must move: 20 bytes a frontier row (id, label,
+    window bounds), 8 an arc, 4 for each distinct target's label read and 5
+    for each label that fell (label and flag written).  Returns the kernels
+    line's entry (sparse-4M) and one line a shape."""
+    import torch
+
+    from repro_torch.kernels.common import lane_group
     from repro_torch.kernels.frontier_relax.kernel import frontier_relax
     from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
 
-    out, lines = pull_phase(graphs, device, rng)
-    sparse = graphs["sparse"]
-    n = sparse.n
-    dist = mixed_dist(n, rng, device)
+    main, lines = None, []
+    for shape, ops, dist, fids in frontier_shapes(graphs, device, rng):
+        n = dist.shape[0]
+        args = (fids, ops["out_indptr"], ops["out_dst"], ops["out_w"])
+        got, fell = dist.clone(), torch.zeros(n, dtype=torch.bool,
+                                              device=device)
+        frontier_relax(got, *args, fell)
+        ref, ref_fell = dist.clone(), torch.zeros_like(fell)
+        frontier_relax_ref(ref, *args, ref_fell)
+        check(bitwise(got, ref) and torch.equal(fell, ref_fell),
+              f"frontier_relax differs from frontier_relax_ref at {shape}")
+        check(torch.equal(fell, got < dist),
+              f"frontier_relax's mask is not new < snapshot at {shape}")
+        # the frontier's arcs, for the yardstick and the bound
+        ip = ops["out_indptr"].long()
+        rows = fids[fids < n]
+        starts, degs = ip[rows], ip[rows + 1] - ip[rows]
+        E = int(degs.sum())
+        first = torch.repeat_interleave(starts - (torch.cumsum(degs, 0)
+                                                  - degs), degs,
+                                        output_size=E)
+        pos = first + torch.arange(E, device=device)
+        fsrc = torch.repeat_interleave(rows, degs, output_size=E)
+        fdst, fw = ops["out_dst"][pos].long(), ops["out_w"][pos]
+        lib = dist.clone()
+        lib.scatter_reduce_(0, fdst, dist[fsrc] + fw, "amin")
+        check(bitwise(lib, ref), f"scatter_reduce_ yardstick differs at "
+                                 f"{shape}")
+        F, T = fids.numel(), int(torch.unique(fdst).numel())
+        W = int(fell.sum())
+        b, by = bound_ms(F * 20 + E * 8 + T * 4 + W * 5, E)
 
-    # frontier_relax on a 10% frontier of the sparse graph, with sentinels.
-    ip_np, od_np, ow_np = sparse.out_csr()
-    ip = torch.tensor(np.concatenate([ip_np, ip_np[-1:]]).astype(np.int32),
-                      device=device)
-    od, ow = torch.tensor(od_np, device=device), torch.tensor(ow_np,
-                                                              device=device)
-    on = torch.tensor(rng.random(n) < 0.1, device=device)
-    fids = torch.cat([torch.nonzero(on).flatten(),
-                      torch.full((7,), n, device=device)])
-    got = frontier_relax(dist, fids, ip, od, ow)
-    ref = frontier_relax_ref(dist, fids, ip, od, ow)
-    check(bitwise(got, ref), "frontier_relax differs from frontier_relax_ref")
-    arc_src = torch.repeat_interleave(
-        torch.arange(n, device=device), (ip[1:n + 1] - ip[:n]).long())
-    sel = on[arc_src]
-    fsrc, fdst, fw = arc_src[sel], od[sel].long(), ow[sel]
-    E, F = int(sel.sum()), fids.numel()
-    lib = dist.scatter_reduce(0, fdst, dist[fsrc] + fw, "amin")
-    check(bitwise(lib, ref), "scatter_reduce yardstick differs")
-    b, by = bound_ms(2 * n * 4 + F * 20 + E * 8, 2 * E)
-    out["frontier_relax"] = dict(
-        shape=f"sparse-4M F={F} E={E}", bitwise_equal_plain=True,
-        max_abs_err=max_abs_err(got, ref),
-        ms=time_ms(lambda: frontier_relax(dist, fids, ip, od, ow),
-                   KERNEL_REPS),
-        plain_ms=time_ms(lambda: frontier_relax_ref(dist, fids, ip, od, ow),
-                         PLAIN_REPS),
-        library_ms=time_ms(
-            lambda: dist.scatter_reduce(0, fdst, dist[fsrc] + fw, "amin"),
-            PLAIN_REPS),
-        bound_ms=b, bound_by=by)
-    return out, lines
+        def reset():
+            got.copy_(dist)
+            fell.zero_()
+
+        def lib_reset():
+            lib.copy_(dist)
+
+        line = dict(
+            shape=f"{shape} n={n} F={F} E={E} targets={T} fell={W}",
+            bitwise_equal_plain=True, max_abs_err=max_abs_err(got, ref),
+            ms=time_ms(lambda: frontier_relax(got, *args, fell), KERNEL_REPS,
+                       reset),
+            plain_ms=time_ms(lambda: frontier_relax_ref(got, *args, fell),
+                             PLAIN_REPS, reset),
+            library_ms=time_ms(lambda: lib.scatter_reduce_(
+                0, fdst, dist[fsrc] + fw, "amin"), PLAIN_REPS, lib_reset),
+            bound_ms=b, bound_by=by)
+        lines.append(dict(frontier_kernel="frontier_relax",
+                          group=lane_group(n, ops["out_dst"].numel()),
+                          max_out_degree=int((ip[1:n + 1] - ip[:n]).max()),
+                          **line))
+        main = main or line
+        del got, fell, ref, ref_fell, lib, fsrc, fdst, fw, pos, first
+    return main, lines
+
+
+def kernel_phase(graphs: dict, device, rng) -> tuple[dict, list]:
+    """Each CSR-path kernel against its plain version at the main path's
+    shapes: the two pull kernels (:func:`pull_phase`) and frontier_relax
+    (:func:`frontier_phase`)."""
+    out, lines = pull_phase(graphs, device, rng)
+    out["frontier_relax"], more = frontier_phase(graphs, device, rng)
+    return out, lines + more
 
 
 def dense_kernel_phase(g, device, rng) -> dict:
@@ -332,7 +448,7 @@ def dense_kernel_phase(g, device, rng) -> dict:
     got, ref = relax_matvec(dist, adj), relax_sweep_ref(dist, adj)
     check(bitwise(got, ref), "relax_matvec differs from relax_sweep_ref")
     rows = int(torch.isfinite(dist).sum())
-    b, by = bound_ms(rows * n * 4 + 2 * n * 4, 2 * rows * n)
+    b, by = bound_ms(rows * n * 4 + 2 * n * 4, rows * n)
     out["relax_matvec"] = dict(
         shape=f"{shape} finite_rows={rows}", bitwise_equal_plain=True,
         max_abs_err=max_abs_err(got, ref),
@@ -349,7 +465,7 @@ def dense_kernel_phase(g, device, rng) -> dict:
     check(bitwise(got, torch.minimum(dist, relax_matvec(masked, adj))),
           "relax_matvec_frontier differs from the masked relax_matvec")
     rows = int((on & torch.isfinite(dist)).sum())
-    b, by = bound_ms(rows * n * 4 + 2 * n * 4 + n, 2 * rows * n)
+    b, by = bound_ms(rows * n * 4 + 2 * n * 4 + n, rows * n)
     out["relax_matvec_frontier"] = dict(
         shape=f"{shape} frontier={int(on.sum())} rows_read={rows}",
         bitwise_equal_plain=True, max_abs_err=max_abs_err(got, ref),
@@ -363,7 +479,7 @@ def dense_kernel_phase(g, device, rng) -> dict:
     check(bitwise(got, ref), "relax_matmul differs from relax_sweep_multi_ref")
     rows = int(torch.isfinite(D).any(dim=0).sum())
     b, by = bound_ms(rows * n * 4 + 2 * SOURCES * n * 4,
-                     2 * SOURCES * rows * n)
+                     SOURCES * rows * n)
     out["relax_matmul"] = dict(
         shape=f"{shape} S={SOURCES} rows_read={rows}",
         bitwise_equal_plain=True, max_abs_err=max_abs_err(got, ref),
@@ -469,6 +585,17 @@ def profile_phase(graphs: dict, walls: dict, device) -> list:
     return lines
 
 
+def launch_counts(wrappers: dict) -> dict:
+    return {k: fn.launches for k, fn in wrappers.items()}
+
+
+def launches_since(wrappers: dict, before: dict) -> dict:
+    """Each kernel's launches since ``before`` (:func:`launch_counts`),
+    those launched only."""
+    return {k: fn.launches - before[k] for k, fn in wrappers.items()
+            if fn.launches > before[k]}
+
+
 def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
     """The main path: every slice engine through shortest_paths.  Records
     each single-source wall in ``walls``, and the kernels' launches on each
@@ -485,7 +612,7 @@ def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
 
     for name, cg in graphs.items():
         lines.append(dict(graph=name, **stage_views(cg, device)))
-        before = {k: fn.launches for k, fn in wrappers.items()}
+        before = launch_counts(wrappers)
         res = {}
         for eng in SINGLE_ENGINES:
             res[eng], wall = run_engine(cg, 0, eng, device)
@@ -503,9 +630,8 @@ def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
             check((a.sweeps, a.edges_relaxed, a.converged)
                   == (b.sweeps, b.edges_relaxed, b.converged),
                   f"{name} {k}: counters differ from {plain}")
-        lines.append(dict(graph=name, launches={
-            k: fn.launches - before[k] for k, fn in wrappers.items()
-            if fn.launches > before[k]}))
+        lines.append(dict(graph=name, launches=launches_since(wrappers,
+                                                             before)))
         if name != "sparse":
             rel = check_oracle(name, base.dist, oracle(cg, [0]))
             lines.append(dict(oracle="scipy.sparse.csgraph.dijkstra",
@@ -524,7 +650,10 @@ def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
         order = np.argsort(np.where(np.isfinite(base.dist), base.dist,
                                     np.inf), kind="stable")
         target = int(order[int(np.isfinite(base.dist).sum()) // 2])
+        before = launch_counts(wrappers)
         tk, wall = run_engine(cg, 0, "frontier_kernel", device, target=target)
+        lines.append(dict(graph=name, query="target", launches=launches_since(
+            wrappers, before)))
         tp, _ = run_engine(cg, 0, "frontier", device, target=target)
         check(tk.dist[target] == base.dist[target] and tk.pred is None,
               "target query: dist[target] differs from the full solve")
@@ -536,7 +665,8 @@ def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
     return lines
 
 
-def dense_engine_phase(dense: dict, device, walls: dict, rng) -> list:
+def dense_engine_phase(dense: dict, device, walls: dict, rng,
+                       wrappers: dict) -> list:
     """The paper's dense path on each graph through shortest_paths: serial,
     bellman, bellman_kernel and bellman_csr from source 0, multisource
     with 8 sources, the batched fixpoint through the relax_matmul kernel
@@ -556,6 +686,7 @@ def dense_engine_phase(dense: dict, device, walls: dict, rng) -> list:
 
     lines = []
     for name, g in dense.items():
+        before = launch_counts(wrappers)
         cg = g.to_csr()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -636,6 +767,8 @@ def dense_engine_phase(dense: dict, device, walls: dict, rng) -> list:
         on = torch.tensor(rng.random(g.n) < 0.5, device=device)
         check(bitwise(relax_sweep(dist, adj, on, frontier_mode=True), dist),
               f"{name} frontier-masked sweep moved the fixpoint")
+        lines.append(dict(graph=name, launches=launches_since(wrappers,
+                                                             before)))
         del adj, D, dist
     return lines
 
@@ -671,6 +804,8 @@ def main() -> int:
                                                        relax_matvec,
                                                        relax_matvec_frontier)
 
+    import min_plus_rate
+
     wrappers = {"ell_relax": ell_relax, "frontier_relax": frontier_relax,
                 "bucket_relax": bucket_relax, "relax_matvec": relax_matvec,
                 "relax_matmul": relax_matmul,
@@ -688,6 +823,8 @@ def main() -> int:
     common.build(KERNELS)
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(KERNELS)}, nvcc {' '.join(common.NVCC_FLAGS)})")
+    RATES.update(min_plus_rate.rates(device))
+    print(json.dumps({"min_plus_rate": RATES}))
 
     t0 = time.perf_counter()
     graphs = {"sparse": C.sparse_csr_graph(SPARSE_N),
@@ -717,7 +854,7 @@ def main() -> int:
         walls = {}
         lines = pull_lines + engine_phase(graphs, device, walls, wrappers)
         t0 = time.perf_counter()
-        lines += dense_engine_phase(dense, device, walls, rng)
+        lines += dense_engine_phase(dense, device, walls, rng, wrappers)
         dense_s["dense_engine_phase_s"] = time.perf_counter() - t0
         lines.append(dense_s)
         torch.cuda.synchronize()

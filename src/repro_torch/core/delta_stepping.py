@@ -155,9 +155,8 @@ def delta_fixpoint(ops: dict, dist0, hpend0, delta, *, n: int,
             go = bool(go_t)
         # the bucket below hi is settled: push its heavy out-arcs once.
         settled = hpend & (dist < hi)
-        new, E = relax_active(ops, dist, settled, sweep=sweep)
-        hpend = (hpend & ~settled) | (new < dist)
-        dist = new
+        # in place on dist and hpend, which the pull loop above made anew
+        E = relax_active(ops, dist, settled, hpend, sweep=sweep)
         edges = edges + E + j * m_light
         phases += 1
     return dist, phases, int(edges), not bool(hpend.any())

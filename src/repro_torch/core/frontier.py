@@ -9,8 +9,11 @@ label improved last sweep:
    vertex's out-window from the outgoing CSR (``CsrGraph.out_csr()``).
 2. **Relax** every slot of those windows in one pass — PyTorch has no
    static shapes to keep, so the JAX version's fixed-size slot chunks are
-   gone — reading the ``dist`` snapshot and scatter-min'ing into a copy
-   (Jacobi sweep, as every other engine).
+   gone — scatter-min'ing into ``dist`` in place from the frontier rows'
+   labels as they were before the sweep (a Jacobi sweep, as every other
+   engine, with a snapshot of F labels, not n), and setting the labels
+   that fell in the loop's ``pending`` mask, cleared of the active rows
+   first.  No sweep copies or compares all n labels.
 
 Distances are bitwise equal to every other engine's (min over the same f32
 path sums).  The optional **Δ-bucket throttle** (``delta=``) expands only
@@ -23,8 +26,9 @@ then final and bitwise equal to the full solve's, and ``pred`` is None.
 ``edges_relaxed`` sums the frontier out-degrees over all sweeps (int64),
 read from the flat out-indptr whichever sweep runs.
 
-The kernel path (engine ``frontier_kernel``) swaps the sweep for the fused
-CUDA push kernel in kernels/frontier_relax.
+The kernel path (engine ``frontier_kernel``) swaps the sweep for the
+in-place CUDA push kernel in kernels/frontier_relax, which flags the
+fallen labels from its atomics.
 """
 from __future__ import annotations
 
@@ -51,9 +55,10 @@ def frontier_operands(cg, *, device) -> dict:
     return ops
 
 
-def relax_edge_slots(nd, row_dist, starts, off, E, out_dst, out_w):
+def relax_edge_slots(dist, row_dist, starts, off, E, out_dst, out_w, fell):
     """Scatter-min ``row_dist[row] + w`` over the E edge slots of a
-    compacted frontier into ``nd`` (in place; returned).
+    compacted frontier into ``dist`` in place, and set ``fell[v]`` for every
+    target label that fell.
 
     row_dist: (F,) source label of each frontier row; starts: each row's
     window start in (out_dst, out_w); off: the exclusive cumsum of the
@@ -63,43 +68,53 @@ def relax_edge_slots(nd, row_dist, starts, off, E, out_dst, out_w):
     """
     E = int(E)
     if E == 0:
-        return nd
-    slots = torch.arange(E, device=nd.device)
+        return
+    slots = torch.arange(E, device=dist.device)
     row = torch.searchsorted(off, slots, right=True) - 1
     pos = starts[row] + (slots - off[row])
     cand = row_dist[row] + out_w[pos]
-    return nd.scatter_reduce_(0, out_dst[pos].long(), cand, "amin")
+    tgt = out_dst[pos].long()
+    old = dist[tgt]
+    dist.scatter_reduce_(0, tgt, cand, "amin")
+    # the same value for every slot of one target, so duplicates agree
+    fell[tgt] |= dist[tgt] < old
 
 
 def make_flat_sweep_fn() -> Callable:
     """The default frontier sweep over flat-CSR edge windows.
 
     The sweep contract (shared with kernels/frontier_relax/ops.py):
-    ``sweep(dist, fids, starts, off, E, fcount, ops) -> new_dist`` with fids
-    the compacted frontier ids, starts their out-window starts, off the
+    ``sweep(dist, fids, starts, off, E, fcount, ops, fell)`` with fids the
+    compacted frontier ids, starts their out-window starts, off the
     exclusive cumsum of their out-degrees, E the total out-degree and fcount
-    the frontier size.  Reads come from ``dist``, writes go to a copy.
+    the frontier size.  It lowers ``dist`` in place, reading each source
+    label as it was before the sweep, and sets ``fell[v]`` for every label
+    that fell, clearing none.
     """
-    def sweep(dist, fids, starts, off, E, fcount, ops):
-        return relax_edge_slots(dist.clone(), dist[fids], starts, off, E,
-                                ops["out_dst"], ops["out_w"])
+    def sweep(dist, fids, starts, off, E, fcount, ops, fell):
+        relax_edge_slots(dist, dist[fids], starts, off, E, ops["out_dst"],
+                         ops["out_w"], fell)
     return sweep
 
 
-def relax_active(ops: dict, dist, active, *, sweep: Callable):
+def relax_active(ops: dict, dist, active, pending, *, sweep: Callable):
     """Compact the ``active`` mask and relax its out-edge windows once —
     shared by :func:`frontier_fixpoint` and the Δ-stepping heavy phase.
-    ``ops`` needs out_indptr (with the trailing sentinel entry), out_dst
-    and out_w.  Returns ``(new_dist, E)``, E the active set's total
-    out-degree as a 0-dim int64 tensor on the device."""
+    In place: ``pending`` loses the active rows, ``dist`` is lowered, and
+    every label that fell joins ``pending`` — so ``pending`` ends as
+    ``(pending & ~active) | (new < old)``.  ``active`` may be ``pending``
+    itself.  ``ops`` needs out_indptr (with the trailing sentinel entry),
+    out_dst and out_w.  Returns E, the active set's total out-degree, as a
+    0-dim int64 tensor on the device."""
     fids = torch.nonzero(active).flatten()           # host sync
     ip = ops["out_indptr"]
     starts = ip[fids]
     degs = ip[fids + 1] - starts
     csum = torch.cumsum(degs, 0)
     E = csum[-1] if fids.numel() else csum.new_zeros(())
-    new = sweep(dist, fids, starts, csum - degs, E, fids.numel(), ops)
-    return new, E
+    pending &= ~active
+    sweep(dist, fids, starts, csum - degs, E, fids.numel(), ops, pending)
+    return E
 
 
 def sweep_cap(n: int, delta, max_sweeps: int | None, max_dist=None) -> int:
@@ -141,7 +156,10 @@ def frontier_fixpoint(
     ``(dist, sweeps, edges_relaxed, converged)``: ``converged`` is True iff
     the loop stopped because the pending set drained (or the target
     settled) rather than because ``cap`` ran out.  Each sweep reads two
-    values back to the host: the stop test and the frontier's size."""
+    values back to the host: the stop test and the frontier's size.
+
+    The loop works in place on copies of ``dist0`` and ``pending0`` taken
+    once on entry, so the caller's tensors are never written."""
     dev = dist0.device
     f32 = torch.float32
     inf = torch.tensor(torch.inf, dtype=f32, device=dev)
@@ -165,7 +183,7 @@ def frontier_fixpoint(
             done = done | settled
         return bool(done)
 
-    dist, pending = dist0, pending0
+    dist, pending = dist0.clone(), pending0.clone()
     sweeps = 0
     edges = torch.zeros((), dtype=torch.int64, device=dev)
     while sweeps < cap and not settled_or_done(dist, pending):
@@ -176,9 +194,8 @@ def frontier_fixpoint(
             nxt = torch.where(pending, dist, inf).amin() + delta_t
             limit = torch.where(has, limit, nxt)
             active = pending & (dist <= limit)
-        new, E = relax_active(ops, dist, active, sweep=sweep)
-        pending = (pending & ~active) | (new < dist)
-        dist, sweeps, edges = new, sweeps + 1, edges + E
+        E = relax_active(ops, dist, active, pending, sweep=sweep)
+        sweeps, edges = sweeps + 1, edges + E
     return dist, sweeps, int(edges), settled_or_done(dist, pending)
 
 

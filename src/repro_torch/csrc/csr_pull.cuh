@@ -1,13 +1,14 @@
-// The row pull shared by the two incoming-CSR kernels, ell_relax.cu and
-// bucket_relax.cu (their sources say what bounds them and why the design
+// The row walk shared by the CSR kernels: the two incoming-CSR pulls,
+// ell_relax.cu and bucket_relax.cu, and the outgoing-CSR push,
+// frontier_relax.cu (their sources say what bounds them and why the design
 // is so).
 //
 // Lanes form groups of G (a power of two <= 32); group g of a warp owns
-// one row.  Lane j of the group reads arcs indptr[v] + j, + G, ..., and
-// the group's min is taken with __shfl_xor_sync.  A row of more than
-// kLongRow arcs is skipped by its group and taken, once the groups are
-// done, by the whole warp: all 32 lanes, one long row at a time (a ballot
-// over the warp).  Every lane of the warp must call pull_row together.
+// one row.  Lane j of the group reads arcs indptr[v] + j, + G, ... .  A row
+// of more than kLongRow arcs is skipped by its group and taken, once the
+// groups are done, by the whole warp: all 32 lanes, one long row at a time
+// (a ballot over the warp, for_long_rows).  Every lane of the warp must
+// call pull_row and for_long_rows together.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,6 +41,23 @@ __device__ __forceinline__ float arc_min(const float* __restrict__ dist,
   return best;
 }
 
+// The whole-warp path for long rows: for each lane of the warp whose
+// ``lead_is_long`` is set (the first lane of a group holding a row of more
+// than kLongRow arcs [beg, end)), calls visit(lead, first, last) on every
+// lane of the warp, with first = that row's beg + lane and last its end, so
+// the 32 lanes stride the row together.
+template <typename Visit>
+__device__ __forceinline__ void for_long_rows(bool lead_is_long, unsigned beg,
+                                              unsigned end, Visit visit) {
+  const unsigned lane = threadIdx.x & 31;
+  for (unsigned longs = __ballot_sync(kFull, lead_is_long); longs;
+       longs &= longs - 1) {
+    const int lead = __ffs(longs) - 1;
+    visit(lead, __shfl_sync(kFull, beg, lead) + lane,
+          __shfl_sync(kFull, end, lead));
+  }
+}
+
 // The min of row v's candidates (+inf for no arcs), exact in the group's
 // first lane (j == 0).  ``row`` is false for lanes past the last row.
 template <int G>
@@ -60,16 +78,14 @@ __device__ __forceinline__ float pull_row(const float* __restrict__ dist,
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
     best = fminf(best, __shfl_xor_sync(kFull, best, off));
-  for (unsigned longs = __ballot_sync(kFull, is_long && j == 0); longs;
-       longs &= longs - 1) {
-    const int lead = __ffs(longs) - 1;
-    float b = arc_min(dist, src, w, __shfl_sync(kFull, beg, lead) + lane,
-                      __shfl_sync(kFull, end, lead), 32);
+  for_long_rows(is_long && j == 0, beg, end,
+                [&](int lead, unsigned first, unsigned last) {
+                  float b = arc_min(dist, src, w, first, last, 32);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      b = fminf(b, __shfl_xor_sync(kFull, b, off));
-    if (lane == static_cast<unsigned>(lead)) best = b;
-  }
+                  for (int off = 16; off > 0; off >>= 1)
+                    b = fminf(b, __shfl_xor_sync(kFull, b, off));
+                  if (lane == static_cast<unsigned>(lead)) best = b;
+                });
   return best;
 }
 

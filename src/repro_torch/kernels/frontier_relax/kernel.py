@@ -7,6 +7,11 @@ and how its design answers that).
 ``frontier_relax`` launches the kernel on CUDA tensors and runs the plain
 version (ref.py) on CPU tensors.  ``frontier_relax.launches`` counts the
 kernel's launches.
+
+The kernel works in place: it lowers ``dist`` itself and flags the labels
+that fell in a mask the caller owns, so a call allocates 12 bytes a
+frontier row (each row's label, its Jacobi snapshot, and out-window) and
+nothing of size n.
 """
 from __future__ import annotations
 
@@ -18,19 +23,21 @@ from repro_torch.kernels import common
 from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
-_ARGS = (_P, _P, _I64, _I64, _P, _P, _P, _P, _P)
+_ARGS = (_P, _P, _P, _I64, _I64, _P, _P, _P, _P, ctypes.c_int, _P)
 
 
 def frontier_relax(dist: torch.Tensor, fids: torch.Tensor,
                    out_indptr: torch.Tensor, out_dst: torch.Tensor,
-                   out_w: torch.Tensor) -> torch.Tensor:
+                   out_w: torch.Tensor, fell: torch.Tensor) -> torch.Tensor:
     """Scatter-min ``dist[u] + w`` over the out-windows of the frontier
-    vertices ``fids`` into a copy of ``dist``; ids >= n are skipped.
+    vertices ``fids`` into ``dist`` in place, reading every source label as
+    it was before the call; ids >= n are skipped.  Sets ``fell[v]`` for
+    every label that fell (and clears none); returns ``fell``.
 
     dist f32 (n,); fids int64 (F,); out_indptr int32 (>= n + 1,) over the
-    outgoing CSR (out_dst int32 (m,), out_w f32 (m,)).  Weights must be
-    nonnegative: the kernel's atomicMin compares float bit patterns as
-    int32, which orders them only from +0 up to +inf.
+    outgoing CSR (out_dst int32 (m,), out_w f32 (m,)); fell bool (n,).
+    Weights must be nonnegative: the kernel's atomicMin compares float bit
+    patterns as int32, which orders them only from +0 up to +inf.
     """
     n = dist.shape[0]
     m = out_dst.shape[0]
@@ -42,19 +49,22 @@ def frontier_relax(dist: torch.Tensor, fids: torch.Tensor,
         raise ValueError(f"out_indptr needs at least {n + 1} entries")
     common.check(out_dst, "out_dst", torch.int32, (m,))
     common.check(out_w, "out_w", torch.float32, (m,))
-    if not common.on_cuda(dist, fids, out_indptr, out_dst, out_w):
-        return frontier_relax_ref(dist, fids, out_indptr, out_dst, out_w)
-    nd = dist.clone()
+    common.check(fell, "fell", torch.bool, (n,))
+    if not common.on_cuda(dist, fids, out_indptr, out_dst, out_w, fell):
+        return frontier_relax_ref(dist, fids, out_indptr, out_dst, out_w,
+                                  fell)
     F = fids.shape[0]
     if F == 0 or m == 0:
-        return nd
+        return fell
+    # the F rows' out-windows and labels, gathered before the push
+    scratch = torch.empty(3 * F, dtype=torch.int32, device=dist.device)
     rc = common.launcher("frontier_relax", _ARGS)(
-        dist.data_ptr(), fids.data_ptr(), F, n, out_indptr.data_ptr(),
-        out_dst.data_ptr(), out_w.data_ptr(), nd.data_ptr(),
-        common.stream(dist))
+        dist.data_ptr(), fids.data_ptr(), scratch.data_ptr(), F, n,
+        out_indptr.data_ptr(), out_dst.data_ptr(), out_w.data_ptr(),
+        fell.data_ptr(), common.lane_group(n, m), common.stream(dist))
     common.raise_on_error(rc, "frontier_relax")
     frontier_relax.launches += 1
-    return nd
+    return fell
 
 
 frontier_relax.launches = 0

@@ -1,8 +1,10 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
 bitwise, and the kernel engines on the GPU against the CPU path.  The
-dense kernels run at n in {1, 37, 255, 4097} and S in {1, 3, 8, 9}, so
-ragged tails, u-split boundaries and ragged source tiles are covered; the
-CSR pull kernels at every lane-group width, on graphs with rows that
+dense kernels run at n in {1, 37, 255, 4097} and S in {1, 3, 8, 9}, and
+relax_matmul also at n = 1025 to 1028 (every residue mod 4) and S in
+{1, 7, 8, 9, 17} with all-INF rows and tiles, so ragged tails, u-split
+boundaries and ragged source tiles are covered; the CSR pull kernels and
+the frontier push at every lane-group width, on graphs with rows that
 their whole-warp path takes.
 
 Marked ``cuda``; every test skips without a CUDA GPU.  On a machine with
@@ -114,6 +116,18 @@ def test_csr_pull_kernels_every_lane_group(cuda, group):
         assert _bits(a, b) and bool(ga) == bool(gb)
 
 
+def _push_both(d, fids, ip, dst, w):
+    """The in-place push by the kernel and by the plain version, each from
+    ``d`` and an empty mask: ((labels, mask), (labels, mask))."""
+    out = []
+    for fn in (frontier_relax, frontier_relax_ref):
+        got = d.clone()
+        fell = torch.zeros(d.shape[0], dtype=torch.bool, device=d.device)
+        assert fn(got, fids, ip, dst, w, fell) is fell
+        out.append((got, fell))
+    return out
+
+
 def test_frontier_kernel_bitwise_vs_plain(cuda):
     cg = TC.skewed_hub_csr_graph(50_000, seed=3)
     ops = TF.frontier_operands(cg, device=cuda)
@@ -123,8 +137,36 @@ def test_frontier_kernel_bitwise_vs_plain(cuda):
                           device=cuda)
         fids = torch.cat([torch.nonzero(on).flatten(),
                           torch.full((3,), cg.n, device=cuda)])
-        args = (d, fids, ops["out_indptr"], ops["out_dst"], ops["out_w"])
-        assert _bits(frontier_relax(*args), frontier_relax_ref(*args))
+        before = frontier_relax.launches
+        (a, fa), (b, fb) = _push_both(d, fids, ops["out_indptr"],
+                                      ops["out_dst"], ops["out_w"])
+        assert frontier_relax.launches == before + 1
+        assert _bits(a, b) and torch.equal(fa, fb)
+        assert torch.equal(fa, a < d)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+def test_frontier_relax_every_lane_group(cuda, group):
+    """The push at every lane-group width, each picked by the wrapper from
+    an outgoing CSR whose mean degree selects it, with rows of 300 to 600
+    arcs (the whole-warp path), isolated rows, INF frontier labels and
+    compaction sentinels."""
+    ip, dst, w = _random_csr(20_011, 1.5 * group, seed=group)
+    n = ip.shape[0] - 1
+    assert common.lane_group(n, dst.shape[0]) == group
+    ip = np.concatenate([ip, ip[-1:]])          # the sentinel's empty row
+    ip, dst, w = _csr(ip, dst, w, cuda)
+    d = _dist(n, group, cuda)
+    hubs = torch.nonzero(ip[1:n + 1] - ip[:n] > 32).flatten()
+    assert hubs.numel() >= 8
+    rng = np.random.default_rng(group)
+    on = torch.tensor(rng.random(n) < 0.3, device=cuda)
+    on[hubs] = True
+    fids = torch.cat([torch.nonzero(on).flatten(),
+                      torch.full((5,), n, device=cuda)])
+    (a, fa), (b, fb) = _push_both(d, fids, ip, dst, w)
+    assert _bits(a, b) and torch.equal(fa, fb)
+    assert torch.equal(fa, a < d) and bool(fa.any())
 
 
 @pytest.mark.parametrize("corpus", ["sparse", "road", "hub"])
@@ -156,6 +198,25 @@ def test_dense_kernels_bitwise_vs_plain(cuda, n):
     for S in (1, 3, 8, 9):
         D = torch.stack([_dist(n, n + s, cuda) for s in range(S)])
         assert _bits(relax_matmul(D, adj), relax_sweep_multi_ref(D, adj))
+
+
+@pytest.mark.parametrize("n", [1025, 1026, 1027, 1028])
+def test_relax_matmul_ragged_columns_sources_and_inf_tiles(cuda, n):
+    """relax_matmul at n = 1, 2, 3 and 0 mod 4 (the 16-byte loads need
+    n % 4 == 0; other n take the scalar loads), at S = 1, 7, 8, 9 and 17
+    (ragged source tiles), with the first 300 rows INF for every source
+    (the compaction drops them) and, at S = 17, a whole tile of 8 INF
+    sources."""
+    adj = torch.tensor(TG.random_graph(n, 6 * n, seed=n).adj, device=cuda)
+    for S in (1, 7, 8, 9, 17):
+        D = torch.stack([_dist(n, 10 * n + s, cuda) for s in range(S)])
+        D[:, :300] = torch.inf
+        if S == 17:
+            D[8:16] = torch.inf
+        assert _bits(relax_matmul(D, adj), relax_sweep_multi_ref(D, adj))
+    assert _bits(relax_matmul(torch.full((9, n), torch.inf, device=cuda),
+                              adj), torch.full((9, n), torch.inf,
+                                               device=cuda))
 
 
 @pytest.mark.parametrize("kind", ["sparse", "dense"])

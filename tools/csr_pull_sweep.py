@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Launch-shape experiment for the two CSR pull kernels
-(``src/repro_torch/csrc/ell_relax.cu`` and ``bucket_relax.cu``) on one GPU.
+"""Launch-shape experiment for the three CSR kernels that share
+``src/repro_torch/csrc/csr_pull.cuh`` (``ell_relax.cu``, ``bucket_relax.cu``
+and ``frontier_relax.cu``) on one GPU.
 
     python3 tools/csr_pull_sweep.py
 
-At chip_smoke.py's pull shapes (sparse-4M, hub-1M full and light, road-4M)
-it times each kernel at every lane-group width G its C entry takes, and,
-at the width the wrappers pick (``kernels.common.lane_group``), once more
-from a build with the whole-warp path for long rows switched off
+At chip_smoke.py's shapes (the pulls: sparse-4M, hub-1M full and light,
+road-4M; the push: a 10% sparse-4M frontier and the real road-4M and
+hub-1M frontiers halfway through their solves) it times each kernel at
+every lane-group width G its C entry takes, and, at the width the wrappers
+pick (``kernels.common.lane_group``), once more from a build with the
+whole-warp path for long rows switched off
 (``-DCSR_PULL_LONG_ROW=0xffffffffu``).  Each variant is first held bitwise
-against the plain CSR version (``bucket_relax`` at a median ``hi``, flag
-included).  The port's wrappers take no launch-shape option, so this script
-calls the C entries directly.
+against the plain version (``bucket_relax`` at a median ``hi``, flag
+included; ``frontier_relax`` labels and fallen-label mask, restored before
+every timed call).  The port's wrappers take no launch-shape option, so
+this script calls the C entries directly.
 
 Prints the card and one JSON line per kernel and shape; exits non-zero on a
 mismatch or without a CUDA GPU.
@@ -32,20 +36,24 @@ import chip_smoke as S  # noqa: E402  (also puts src/ on the path)
 GROUPS = (1, 2, 4, 8, 16, 32)
 
 
-def launcher_without_long_rows(name: str, argtypes):
-    """The C entry of kernel ``name`` from a build with the whole-warp path
-    off: every row stays with its lane group."""
+def variant_launcher(name: str, argtypes, define: str):
+    """The C entry of kernel ``name`` from a build with ``-D<define>``
+    (``CSR_PULL_LONG_ROW=0xffffffffu``: every row stays with its lane
+    group)."""
     from repro_torch.kernels import common
 
-    out = common.BUILD_DIR / f"{name}-no-long-row.so"
+    tag = define.replace("=", "-")
+    out = common.BUILD_DIR / f"{name}-{tag}.so"
     common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([common._nvcc(), *common.NVCC_FLAGS,
-                    "-DCSR_PULL_LONG_ROW=0xffffffffu", "-o", str(out),
-                    str(common.CSRC / f"{name}.cu")], check=True)
+    subprocess.run([common._nvcc(), *common.NVCC_FLAGS, f"-D{define}", "-o",
+                    str(out), str(common.CSRC / f"{name}.cu")], check=True)
     fn = getattr(ctypes.CDLL(str(out)), f"{name}_launch")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+NO_LONG_ROW = "CSR_PULL_LONG_ROW=0xffffffffu"
 
 
 def call(name: str, fn, group: int, dist, csr, hi):
@@ -67,6 +75,69 @@ def call(name: str, fn, group: int, dist, csr, hi):
         res = (out, flag)
     common.raise_on_error(rc, name)
     return res
+
+
+def push_once(fn, group: int, fids, ops, scratch, out, fell):
+    """One call of the frontier push's C entry at lane-group width
+    ``group``, in place on ``out`` and ``fell``."""
+    from repro_torch.kernels import common
+
+    n = out.shape[0]
+    rc = fn(out.data_ptr(), fids.data_ptr(), scratch.data_ptr(),
+            fids.numel(), n, ops["out_indptr"].data_ptr(),
+            ops["out_dst"].data_ptr(), ops["out_w"].data_ptr(),
+            fell.data_ptr(), group, common.stream(out))
+    common.raise_on_error(rc, "frontier_relax")
+
+
+def push_sweep(graphs: dict, device, rng) -> None:
+    """frontier_relax at every G and without the long-row path, at
+    chip_smoke's three push shapes."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.frontier_relax import kernel as KF
+    from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
+
+    fn = common.launcher("frontier_relax", KF._ARGS)
+    fn_no_long = variant_launcher("frontier_relax", KF._ARGS, NO_LONG_ROW)
+    shapes = S.frontier_shapes(graphs, device, rng)
+    for shape, ops, dist, fids in shapes:
+        n, m = dist.shape[0], ops["out_dst"].numel()
+        want, want_fell = dist.clone(), torch.zeros(n, dtype=torch.bool,
+                                                    device=device)
+        frontier_relax_ref(want, fids, ops["out_indptr"], ops["out_dst"],
+                           ops["out_w"], want_fell)
+        out, fell = dist.clone(), torch.zeros_like(want_fell)
+        scratch = torch.empty(3 * fids.numel(), dtype=torch.int32,
+                              device=device)
+
+        def reset():
+            out.copy_(dist)
+            fell.zero_()
+
+        picked = common.lane_group(n, m)
+        variants = {g: (fn, g) for g in GROUPS}
+        variants["no_long_row"] = (fn_no_long, picked)
+        ms = {}
+        for key, (f, g) in variants.items():
+            reset()
+            push_once(f, g, fids, ops, scratch, out, fell)
+            S.check(S.bitwise(out, want) and torch.equal(fell, want_fell),
+                    f"frontier_relax differs from its plain version at "
+                    f"{shape} ({key}, G={g})")
+            ms[key] = S.time_ms(
+                lambda: push_once(f, g, fids, ops, scratch, out, fell),
+                S.KERNEL_REPS, reset)
+        ip = ops["out_indptr"]
+        print(json.dumps(dict(
+            kernel="frontier_relax", shape=shape, n=n, arcs=m,
+            frontier=fids.numel(),
+            max_degree=int((ip[1:n + 1] - ip[:n]).max()), group=picked,
+            ms=ms[picked], ms_by_group={g: ms[g] for g in GROUPS},
+            ms_without_long_row_path=ms["no_long_row"],
+            bitwise_equal_plain=True)), flush=True)
+        del ops, dist, fids, want, want_fell, out, fell, scratch
 
 
 def main() -> int:
@@ -92,11 +163,11 @@ def main() -> int:
     print(f"card: {card}")
     kernels = {
         "ell_relax": (common.launcher("ell_relax", KE._ARGS),
-                      launcher_without_long_rows("ell_relax", KE._ARGS),
+                      variant_launcher("ell_relax", KE._ARGS, NO_LONG_ROW),
                       lambda d, csr, hi: (ell_relax_csr_ref(d, *csr),)),
         "bucket_relax": (common.launcher("bucket_relax", KB._ARGS),
-                         launcher_without_long_rows("bucket_relax",
-                                                    KB._ARGS),
+                         variant_launcher("bucket_relax", KB._ARGS,
+                                          NO_LONG_ROW),
                          lambda d, csr, hi: bucket_relax_csr_ref(d, *csr,
                                                                  hi)),
     }
@@ -141,6 +212,7 @@ def main() -> int:
                 ms_without_long_row_path=ms["no_long_row"],
                 bitwise_equal_plain=True)), flush=True)
         del dist, csr
+    push_sweep({"sparse": sparse, "road": road, "hub": hub}, device, rng)
     return 0
 
 
