@@ -29,7 +29,14 @@ the kernels' operation bounds use them) and then:
    rounding bound of ``scipy.sparse.csgraph.dijkstra`` (float64), and
    ``serial`` (the paper's Alg. 1) bitwise equal to ``bellman_csr`` on a
    2048-vertex graph;
-4. the dense adjacency-matrix path, the paper's own, at the shapes of its
+4. the dynamic-graph path on sparse-4M (:func:`dynamic_phase`): a
+   ``DynamicGraph`` staged on the card, ``solve_dynamic`` held against the
+   ``frontier`` engine, and for mutation batches of 1 and 8 edges 2 + 12
+   rounds of churn, each repaired (``repair_sssp``, chained) and re-solved
+   in full, bitwise equal every round, the last round also held against
+   the snapshot's ``frontier`` solve and scipy; one line a batch size with
+   the median walls, work counters and cone;
+5. the dense adjacency-matrix path, the paper's own, at the shapes of its
    Tables I and II: paper-sparse-40000 (``sparse_graph(40000)``, a 6.4 GB
    matrix) and dense-2000 (``dense_graph(2000)``).  The three min-plus
    kernels are held against their plain versions and timed at
@@ -42,10 +49,11 @@ the kernels' operation bounds use them) and then:
    wall ratio is the paper's headline comparison on this card.
 
 It prints the card, the measured rates, one JSON line per CSR-kernel
-shape, per engine run and per graph's (and the target query's) kernel
-launches, one ``{"kernels": ...}`` line, and last ``{"ok": true, "device":
-...}``.  Any failed check exits non-zero before that line; so does a
-machine without a CUDA GPU.
+shape, per engine run, per dynamic batch size and per graph's (and the
+target query's and the dynamic phase's) kernel launches, one
+``{"kernels": ...}`` line, and last ``{"ok": true, "device": ...}``.
+Any failed check exits non-zero before that line; so does a machine
+without a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -513,15 +521,22 @@ def check_oracle(name: str, dist, ref) -> float:
     return rel
 
 
-def run_engine(cg, source, engine, device, **kw):
+def timed(fn):
+    """``fn()`` and its host-clock wall, the device idle at the start (the
+    port's entry points return numpy, so the device work has ended)."""
     import torch
-
-    from repro_torch.core.api import shortest_paths
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = shortest_paths(cg, source, engine=engine, device=device, **kw)
-    return res, time.perf_counter() - t0
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def run_engine(cg, source, engine, device, **kw):
+    from repro_torch.core.api import shortest_paths
+
+    return timed(lambda: shortest_paths(cg, source, engine=engine,
+                                        device=device, **kw))
 
 
 def stage_views(cg, device) -> dict:
@@ -553,19 +568,41 @@ def stage_views(cg, device) -> dict:
     return out
 
 
-def device_busy_s(fn) -> float:
-    """Device time of everything ``fn()`` ran on the GPU (kernels and
-    copies), summed from a torch.profiler trace."""
+PROFILE_TOP = 8
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn()`` under torch.profiler: its host-clock wall and
+    the device time of everything it ran on the GPU (kernels and copies),
+    both from that call, and the ``PROFILE_TOP`` ops that took the most
+    device time, summed by name (ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            # template arguments make kernel names long: sum by their head
+            name = e.key[:80]
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.self_device_time_total / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    return {"wall_s": wall, "busy_s": sum(by_name.values()) / 1e3,
+            "top_device_ms": dict(top)}
+
+
+def idle_share(busy: float, wall: float):
+    """1 - busy / wall, unclamped: a negative share says the two readings
+    do not compare, and is printed as such."""
+    return 1.0 - busy / wall if busy > 0 else "not measured"
 
 
 def profile_phase(graphs: dict, walls: dict, device) -> list:
@@ -576,12 +613,13 @@ def profile_phase(graphs: dict, walls: dict, device) -> list:
     lines = []
     for name, (cg, engines) in graphs.items():
         for eng in engines:
-            busy = device_busy_s(lambda: run_engine(cg, 0, eng, device))
+            prof = profile_call(lambda: run_engine(cg, 0, eng, device))
             wall = walls[name, eng]
             lines.append(dict(profile=eng, graph=name, wall_s=wall,
-                              device_busy_s=busy,
-                              device_idle_share=max(0.0, 1.0 - busy / wall)
-                              if busy > 0 else "not measured"))
+                              profiled_wall_s=prof["wall_s"],
+                              device_busy_s=prof["busy_s"],
+                              device_idle_share=idle_share(prof["busy_s"],
+                                                           wall)))
     return lines
 
 
@@ -662,6 +700,90 @@ def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
               == (tp.sweeps, tp.edges_relaxed, tp.converged),
               "target query: frontier_kernel differs from frontier")
         record(name, tk, wall, target=target)
+    return lines
+
+
+def dynamic_phase(name: str, cg, device, wrappers: dict) -> list:
+    """The dynamic-graph path on ``cg``, with the dynamic bench's batch
+    sizes, rounds and overlay capacity (repro_torch.benchmarks.
+    dynamic_bench): a ``DynamicGraph`` staged on the card;
+    ``solve_dynamic`` at version 0 held bitwise against the ``frontier``
+    engine (dist, pred and counters); then for each batch size B, on a
+    fresh overlay, the bench's rounds of B ``EdgeChurn`` edits, each
+    committed and followed by a chained ``repair_sssp`` and a full
+    ``solve_dynamic``, dist and pred bitwise equal every round (the bench's
+    ``churn_rounds``).  After the last round the snapshot's ``frontier``
+    solve and scipy's Dijkstra are held against the repaired row.  One line
+    a B: medians over the counted rounds of the two walls (host clock),
+    their ``edges_relaxed`` and sweeps (a shortcut round, where the batch
+    cannot touch the row, counts 0 of both), the cone median, the bytes
+    ``dyn_ops`` holds on the card, and, for the last round's repair and a
+    full solve run once more under the profiler, the wall and device time
+    of that call and its costliest ops.  No kernel launches on this
+    path."""
+    import numpy as np
+
+    from repro_torch.benchmarks import dynamic_bench as DB
+    from repro_torch.dynamic import DynamicGraph, repair_sssp, solve_dynamic
+    from repro_torch.serve.workload import EdgeChurn
+
+    def same(a, b, what):
+        check(a.dist.tobytes() == b.dist.tobytes()
+              and np.array_equal(a.pred, b.pred), what)
+
+    lines = []
+    before = launch_counts(wrappers)
+    ref, _ = run_engine(cg, 0, "frontier", device)
+    for B in DB.BATCH_SIZES:
+        dyn = DynamicGraph(cg, overlay_capacity=DB.OVERLAY_CAPACITY)
+        _, stage = timed(lambda: dyn.dyn_ops(device=device))
+        prev, wall0 = timed(lambda: solve_dynamic(dyn, 0, device=device))
+        same(prev, ref, f"dynamic B={B}: version 0 differs from frontier")
+        check((prev.sweeps, prev.edges_relaxed, prev.converged)
+              == (ref.sweeps, ref.edges_relaxed, ref.converged),
+              f"dynamic B={B}: version 0 counters differ from frontier")
+        rounds = []
+        for rnd, (last, batch, res, st, full, t_rep, t_full) in enumerate(
+                DB.churn_rounds(dyn, EdgeChurn(cg, np.random.default_rng(B)),
+                                B, prev, DB.WARMUP + DB.ROUNDS, device)):
+            prev = res
+            if rnd >= DB.WARMUP:
+                work = (0, 0) if st.shortcut else (res.sweeps,
+                                                   res.edges_relaxed)
+                rounds.append((t_rep, t_full, *work, full.sweeps,
+                               full.edges_relaxed, st.cone, st.shortcut))
+        snap = dyn.snapshot()
+        fr, _ = run_engine(snap, 0, "frontier", device)
+        same(prev, fr, f"dynamic B={B}: repaired row differs from the "
+                       f"snapshot's frontier solve")
+        rel = check_oracle(f"dynamic B={B}", prev.dist, oracle(snap, [0]))
+        med = [statistics.median(col) for col in zip(*rounds)]
+        # the last round's repair again, and a full solve, under the
+        # profiler: device time against the wall of the same call
+        prep = profile_call(lambda: repair_sssp(dyn, last, batch,
+                                                device=device))
+        pfull = profile_call(lambda: solve_dynamic(dyn, 0, device=device))
+        lines.append(dict(
+            dynamic=name, n=cg.n, nnz_live=dyn.nnz_live, B=B,
+            rounds=DB.ROUNDS, warmup=DB.WARMUP, version=dyn.version,
+            overlay_used=dyn.overlay_used, compactions=dyn.compactions,
+            stage_dyn_ops_s=stage, staged_bytes=dyn.staged_nbytes,
+            solve_v0_wall_s=wall0, repair_wall_s=med[0], full_wall_s=med[1],
+            repair_sweeps=med[2], repair_edges_relaxed=med[3],
+            full_sweeps=med[4], full_edges_relaxed=med[5], cone_median=med[6],
+            shortcut_rounds=sum(r[7] for r in rounds),
+            repair_profiled_wall_s=prep["wall_s"],
+            repair_device_busy_s=prep["busy_s"],
+            repair_idle_share=idle_share(prep["busy_s"], prep["wall_s"]),
+            repair_top_device_ms=prep["top_device_ms"],
+            full_profiled_wall_s=pfull["wall_s"],
+            full_device_busy_s=pfull["busy_s"],
+            full_idle_share=idle_share(pfull["busy_s"], pfull["wall_s"]),
+            full_top_device_ms=pfull["top_device_ms"],
+            bitwise_every_round=True, oracle_max_rel_err=rel))
+        del dyn, snap
+    lines.append(dict(graph=f"dynamic {name}",
+                      launches=launches_since(wrappers, before)))
     return lines
 
 
@@ -853,6 +975,10 @@ def main() -> int:
             fn.launches = 0
         walls = {}
         lines = pull_lines + engine_phase(graphs, device, walls, wrappers)
+        t0 = time.perf_counter()
+        lines += dynamic_phase("sparse-4M", graphs["sparse"], device,
+                               wrappers)
+        lines.append({"dynamic_phase_s": time.perf_counter() - t0})
         t0 = time.perf_counter()
         lines += dense_engine_phase(dense, device, walls, rng, wrappers)
         dense_s["dense_engine_phase_s"] = time.perf_counter() - t0

@@ -153,7 +153,7 @@ def _validate(engine, delta, target):
 
 
 def shortest_paths(
-    g: "graph_mod.Graph | csr_mod.CsrGraph | np.ndarray",
+    g: "graph_mod.Graph | csr_mod.CsrGraph | DynamicGraph | np.ndarray",
     source,
     *,
     engine: str = "serial",
@@ -167,7 +167,8 @@ def shortest_paths(
     array for ``multisource`` and ``multisource_csr``).  ``g`` is a
     ``CsrGraph``, a dense ``Graph`` or an (n, n) adjacency array; the CSR
     engines convert dense input, ``serial`` and the dense engines densify
-    CSR input (O(n²)).
+    CSR input (O(n²)).  A ``DynamicGraph`` is solved as its current
+    ``snapshot()``.
 
     ``delta`` sets the Δ-bucket width of the frontier and ``delta_stepping``
     engines: a positive finite number or ``"auto"`` (per graph, from
@@ -182,6 +183,14 @@ def shortest_paths(
     """
     delta = _validate(engine, delta, target)
     dev = resolve_device(device)
+
+    from repro_torch.dynamic.overlay import DynamicGraph  # dynamic uses api
+
+    if isinstance(g, DynamicGraph):
+        # the current version through its snapshot CSR (exact by
+        # construction); the overlay engines that skip the snapshot are
+        # dynamic/repair.py's solve_dynamic and repair_sssp
+        g = g.snapshot()
 
     if isinstance(g, csr_mod.CsrGraph):
         cg = g

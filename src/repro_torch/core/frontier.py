@@ -24,7 +24,10 @@ once no pending label is below ``dist[target]`` (or, with an admissible
 then final and bitwise equal to the full solve's, and ``pred`` is None.
 
 ``edges_relaxed`` sums the frontier out-degrees over all sweeps (int64),
-read from the flat out-indptr whichever sweep runs.
+read from the flat out-indptr whichever sweep runs.  ``frontier_fixpoint``
+also takes a warm start and an ``edges0`` to count on from: the dynamic
+repair (dynamic/repair.py) seeds it after rebuilding its invalidated cone
+with :func:`pull_edge_slots`, the pull form of the slot walk.
 
 The kernel path (engine ``frontier_kernel``) swaps the sweep for the
 in-place CUDA push kernel in kernels/frontier_relax, which flags the
@@ -78,6 +81,29 @@ def relax_edge_slots(dist, row_dist, starts, off, E, out_dst, out_w, fell):
     dist.scatter_reduce_(0, tgt, cand, "amin")
     # the same value for every slot of one target, so duplicates agree
     fell[tgt] |= dist[tgt] < old
+
+
+def pull_edge_slots(nd, fids, src_dist, starts, off, E, in_src, in_w):
+    """The pull form of :func:`relax_edge_slots`: scatter-min
+    ``src_dist[in_src[pos]] + in_w[pos]`` over the E slots of the compacted
+    rows' incoming windows into each row's own vertex ``fids[row]``, in one
+    pass.  Returns a new tensor; ``nd`` is not written.
+
+    dynamic/repair.py rebuilds the invalidated cone's labels from its
+    boundary with it, in O(cone in-degree): the rows are the cone's
+    vertices, the windows come from the incoming CSR, and cone sources
+    carry INF so only live support lands.  Slot arithmetic as in
+    :func:`relax_edge_slots`; a row with an empty window (such as the id n
+    on the sentinel row of the offsets) owns no slot.
+    """
+    E = int(E)
+    if E == 0:
+        return nd.clone()
+    slots = torch.arange(E, device=nd.device)
+    row = torch.searchsorted(off, slots, right=True) - 1
+    pos = starts[row] + (slots - off[row])
+    cand = src_dist[in_src[pos]] + in_w[pos]
+    return nd.scatter_reduce(0, fids[row], cand, "amin")
 
 
 def make_flat_sweep_fn() -> Callable:
@@ -151,12 +177,21 @@ def frontier_fixpoint(
     delta: float | None = None,
     target: int | None = None,
     target_lb: float | None = None,
+    edges0=0,
 ):
     """The frontier relax loop on an arbitrary initial state.  Returns
-    ``(dist, sweeps, edges_relaxed, converged)``: ``converged`` is True iff
-    the loop stopped because the pending set drained (or the target
-    settled) rather than because ``cap`` ran out.  Each sweep reads two
-    values back to the host: the stop test and the frontier's size.
+    ``(dist, sweeps, edges_relaxed, converged)``: ``edges_relaxed`` counts
+    on from ``edges0`` (an int or a 0-dim tensor: the repair's pull), and
+    ``converged`` is True iff the loop stopped because the pending set
+    drained (or the target settled) rather than because ``cap`` ran out.
+    Each sweep reads two values back to the host: the stop test and the
+    frontier's size.
+
+    A warm start (dynamic/repair.py) must have ``dist0`` pointwise at or
+    above the fixpoint, every finite label a real path length, and
+    ``pending0`` covering every vertex whose label fell since its
+    out-neighbours last saw it; the loop then lands on the cold solve's
+    fixpoint, bitwise.
 
     The loop works in place on copies of ``dist0`` and ``pending0`` taken
     once on entry, so the caller's tensors are never written."""
@@ -185,7 +220,7 @@ def frontier_fixpoint(
 
     dist, pending = dist0.clone(), pending0.clone()
     sweeps = 0
-    edges = torch.zeros((), dtype=torch.int64, device=dev)
+    edges = torch.as_tensor(edges0, dtype=torch.int64).to(dev)
     while sweeps < cap and not settled_or_done(dist, pending):
         if delta is None:
             active = pending

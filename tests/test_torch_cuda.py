@@ -232,3 +232,29 @@ def test_dense_engines_on_gpu_match_cpu(cuda, kind):
     a = shortest_paths(g, srcs, engine="multisource", device=cuda)
     c = shortest_paths(g, srcs, engine="multisource", device="cpu")
     assert a.dist.tobytes() == c.dist.tobytes() and a.sweeps == c.sweeps
+
+
+def test_dynamic_repair_on_gpu_matches_cpu(cuda):
+    """The dynamic path (no kernel of its own) on the card against the CPU
+    path: chained repairs and full solves over the same seeded churn,
+    dist, pred and every counter equal."""
+    from repro_torch.dynamic import DynamicGraph, repair_sssp, solve_dynamic
+    from repro_torch.serve.workload import EdgeChurn
+
+    cg = TC.sparse_csr_graph(20_000, seed=3)
+    dyns = {d: DynamicGraph(cg, overlay_capacity=64) for d in ("cpu", cuda)}
+    churn = EdgeChurn(cg, np.random.default_rng(3))
+    prev = {d: solve_dynamic(dyn, 0, device=d) for d, dyn in dyns.items()}
+    for _ in range(6):
+        edits = [churn.sample() for _ in range(4)]
+        for d, dyn in dyns.items():
+            for op, u, v, w in edits:
+                dyn.apply((op, u, v) if w is None else (op, u, v, w))
+            batch = dyn.commit()
+            prev[d], _ = repair_sssp(dyn, prev[d], batch, device=d)
+        a, b = (prev[d] for d in dyns)
+        full = solve_dynamic(dyns[cuda], 0, device=cuda)
+        for r in (b, full):
+            assert a.dist.tobytes() == r.dist.tobytes()
+            assert np.array_equal(a.pred, r.pred)
+        assert (a.sweeps, a.edges_relaxed) == (b.sweeps, b.edges_relaxed)
