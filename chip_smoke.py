@@ -46,12 +46,31 @@ the kernels' operation bounds use them) and then:
    ``serial``'s tree valid, sweeps equal, the scipy oracle), ``multisource``
    with 8 sources, the batched fixpoint through the ``relax_matmul``
    kernel, and one frontier-masked sweep; the serial / ``bellman_kernel``
-   wall ratio is the paper's headline comparison on this card.
+   wall ratio is the paper's headline comparison on this card;
+6. the serving path (:func:`serve_phase`), with the launch counts set to 0
+   just before it and read just after: a ``GraphRegistry`` on the card
+   holding sparse-4M, hub-1M and a ``DynamicGraph`` of sparse-4M, each
+   with 8 ALT landmarks, one ``MicroBatchScheduler`` (16 sources a batch,
+   a 64-row ``DistanceCache``) replaying a Zipf trace and a point-to-point
+   trace over the static graphs and a churn trace over the dynamic one in
+   open loop on the wall clock, then a lone p2p query a static graph (the
+   ``target=`` residue, through ``frontier_relax``) and one 16-source
+   tick under the profiler; every exact answer bitwise equal to a fresh
+   ``frontier_kernel`` solve of its (graph, version, source), one source
+   a graph against scipy, and ``engine="auto"`` launching its routed
+   kernel; one ``{"serve": ...}`` line a trace;
+7. observability (:func:`obs_phase`): the CSR engines on sparse-4M and the
+   Zipf replay again under a ``Tracer`` and a ``CostLog``, their files
+   through the port's ``validate`` (the CLI for the replay's), every cost
+   record stamped ``"gpu"`` and the card's name, and traced against
+   untraced walls (printed, not gated).
 
 It prints the card, the measured rates, one JSON line per CSR-kernel
-shape, per engine run, per dynamic batch size and per graph's (and the
-target query's and the dynamic phase's) kernel launches, one
-``{"kernels": ...}`` line, and last ``{"ok": true, "device": ...}``.
+shape, per engine run, per dynamic batch size, per serve trace, per obs
+pass and per graph's (and the target query's and the dynamic phase's)
+kernel launches, one ``{"kernels": ...}`` line (``launches`` summed over
+the two counted windows, ``launches_by_path`` split), and last
+``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line; so does a machine
 without a CUDA GPU.
 """
@@ -109,6 +128,20 @@ SINGLE_ENGINES = ("bellman_csr", "bellman_csr_kernel", "frontier",
                   "frontier_kernel", "delta_stepping", "delta_stepping_kernel")
 TWINS = {"bellman_csr_kernel": "bellman_csr", "frontier_kernel": "frontier",
          "delta_stepping_kernel": "delta_stepping"}
+#: the serving configuration: three graphs on the card, 8 ALT landmarks
+#: each, a scheduler of 16 sources a batch over a 64-row cache, and the
+#: traces replayed through it
+SERVE_LANDMARKS = 8
+SERVE_MAX_BATCH = 16
+SERVE_CACHE_ROWS = 64
+SERVE_OVERLAY = 512
+SERVE_QUERIES = 256
+SERVE_RATE = 2000.0
+CHURN_EVENTS = 128
+#: the kernel each kernel engine launches
+KERNEL_OF = {"bellman_csr_kernel": "ell_relax",
+             "frontier_kernel": "frontier_relax",
+             "delta_stepping_kernel": "bucket_relax"}
 
 
 class CheckFailed(Exception):
@@ -895,6 +928,350 @@ def dense_engine_phase(dense: dict, device, walls: dict, rng,
     return lines
 
 
+def replay(sched, events, verify) -> tuple[list, float, float]:
+    """The open-loop replay of the JAX serving driver
+    (repro/launch/sssp_serve.py's ``replay``, copied, with the churn
+    trace's mutation events submitted into the same clock): events are
+    submitted as the wall clock passes their arrival and the scheduler
+    ticks whenever work is pending, stamping each answer's ``done_at``.
+    ``verify(answers)`` runs after every tick with the clock stopped, so
+    checking leaves arrivals and latencies as they were.  Returns (answers,
+    replay wall s, verification s)."""
+    from repro_torch.serve import MutationEvent
+
+    events = sorted(events, key=lambda e: e.arrival)
+    t0, paused = time.perf_counter(), 0.0
+
+    def clock():
+        return time.perf_counter() - t0 - paused
+
+    i, answers = 0, []
+    while i < len(events) or sched.pending:
+        now = clock()
+        while i < len(events) and events[i].arrival <= now:
+            e = events[i]
+            if isinstance(e, MutationEvent):
+                sched.submit_mutation(e.graph, e.op, e.u, e.v, e.w,
+                                      arrival=e.arrival)
+            else:
+                sched.submit(e.graph, e.source, e.target, arrival=e.arrival,
+                             deadline=e.deadline)
+            i += 1
+        if sched.pending:
+            out = sched.tick(now)
+            done = clock()
+            for a in out:
+                a.done_at = done
+            answers.extend(out)
+            v0 = time.perf_counter()
+            verify(out)
+            paused += time.perf_counter() - v0
+        elif i < len(events):
+            time.sleep(min(events[i].arrival - now, 1e-3))
+    return answers, clock(), paused
+
+
+class Verifier:
+    """Holds every served answer to a fresh solve: each ``exact=True``
+    answer bitwise equal to ``shortest_paths(..., engine="frontier_kernel")``
+    of its (graph, version, source) — for a dynamic graph on the snapshot
+    of the version that answered — one solve memoized per key, and a p2p
+    answer's ``dist[target]`` to that row's.  Every answer of these
+    fault-free replays must be ``ok``; inexact ones are counted, not
+    compared.  The reference solves run outside any installed tracer and
+    cost log, and their kernel launches are taken back out of the counts:
+    checking is not serving."""
+
+    def __init__(self, registry, device, wrappers: dict):
+        self.registry, self.device, self.wrappers = registry, device, wrappers
+        self.rows: dict = {}
+        self.first: dict = {}     # graph -> (version, source, CsrGraph)
+        self.exact = self.inexact = 0
+
+    def ref(self, graph: str, version: int, source: int):
+        key = (graph, version, source)
+        if key not in self.rows:
+            h = self.registry.get(graph)
+            cg = h.dyn.snapshot() if h.dyn is not None else h.cg
+            self.first.setdefault(graph, (version, source, cg))
+            res, _ = run_engine(cg, source, "frontier_kernel", self.device)
+            self.rows[key] = res.dist
+        return self.rows[key]
+
+    def __call__(self, answers) -> None:
+        from repro_torch.obs import set_cost_log, set_tracer
+
+        counts = launch_counts(self.wrappers)
+        tracer, cost_log = set_tracer(None), set_cost_log(None)
+        try:
+            self._check(answers)
+        finally:
+            set_tracer(tracer)
+            set_cost_log(cost_log)
+            for k, fn in self.wrappers.items():
+                fn.launches = counts[k]
+
+    def _check(self, answers) -> None:
+        import numpy as np
+
+        for a in answers:
+            q = a.query
+            check(a.status == "ok", f"serve: {q} answered {a.status} "
+                                    f"({a.error})")
+            if a.via == "mutate":
+                continue
+            if not a.exact:
+                self.inexact += 1
+                continue
+            ref = self.ref(q.graph, self.registry.get(q.graph).version,
+                           q.source)
+            if q.target is None:
+                ok = np.asarray(a.value).tobytes() == ref.tobytes()
+            else:
+                got, want = np.float32(a.value), ref[q.target]
+                ok = got == want or (np.isinf(got) and np.isinf(want))
+            check(ok, f"serve: {q} via {a.via} differs from a fresh "
+                      f"frontier_kernel solve")
+            self.exact += 1
+
+
+def serve_phase(static: dict, dyn_base, device, wrappers: dict,
+                lines: list) -> tuple:
+    """The serving path on the card: a ``GraphRegistry(device)`` holding
+    the graphs of ``static`` (name -> CsrGraph) and a ``DynamicGraph`` of
+    ``dyn_base``, each with its landmarks; one scheduler replaying three
+    traces in turn (Zipf and point-to-point over the static graphs, churn
+    over the dynamic one) with a :class:`Verifier` after every tick.  At
+    these sizes a tick of 16 sources takes long against the traces' 2000
+    arrivals a second, so the open loop keeps a backlog and a tick's
+    residue is rarely one lone point-to-point query; so a lone p2p query
+    a static graph is then served by the idle scheduler (the ``target=``
+    residue path, through ``frontier_relax``).  Then one source a graph
+    against scipy, and ``engine="auto"`` on each static graph against the
+    engine it named, its kernel's launches read.  Appends its lines to
+    ``lines`` (one a trace, one for the registry, the residue, the oracle
+    and auto) and returns the registry, the Zipf trace and its wall."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dynamic import DynamicGraph
+    from repro_torch.serve import (DistanceCache, GraphRegistry,
+                                   LatencyRecorder, MicroBatchScheduler,
+                                   make_churn_trace, make_trace)
+
+    t0 = time.perf_counter()
+    registry = GraphRegistry(device=device)
+    for name, cg in static.items():
+        registry.register(name, cg, landmarks=SERVE_LANDMARKS)
+    dyn_name = f"dyn-{next(iter(static))}"
+    dyn = DynamicGraph(dyn_base, overlay_capacity=SERVE_OVERLAY)
+    registry.register(dyn_name, dyn, landmarks=SERVE_LANDMARKS)
+    lines.append(dict(registry=list(registry.names),
+                      register_s=time.perf_counter() - t0,
+                      landmarks=SERVE_LANDMARKS,
+                      bytes_in_use=registry.bytes_in_use))
+    cache = DistanceCache(capacity=SERVE_CACHE_ROWS)
+    sched = MicroBatchScheduler(registry, cache, max_batch=SERVE_MAX_BATCH)
+    verify = Verifier(registry, device, wrappers)
+    sizes = [(name, cg.n) for name, cg in static.items()]
+    traces = {
+        "zipf": make_trace("zipf", sizes, num_queries=SERVE_QUERIES,
+                           rate=SERVE_RATE, seed=0),
+        # another seed than the Zipf trace's, so another hot set
+        "p2p": make_trace("p2p", sizes, num_queries=SERVE_QUERIES,
+                          rate=SERVE_RATE, seed=1),
+        "churn": make_churn_trace([(dyn_name, dyn.base)],
+                                  num_events=CHURN_EVENTS, rate=SERVE_RATE,
+                                  mutate_frac=0.15, p2p_frac=0.3, seed=0),
+    }
+    for trace, events in traces.items():
+        before = launch_counts(wrappers)
+        hits0, misses0, occ0 = cache.hits, cache.misses, sched.occupancy_sum
+        s0 = sched.stats()
+        exact0, inexact0 = verify.exact, verify.inexact
+        answers, wall, paused = replay(sched, events, verify)
+        s1 = sched.stats()
+        rec = LatencyRecorder()
+        for a in answers:
+            if a.via != "mutate":
+                rec.observe(a, a.done_at)
+        hits, misses = cache.hits - hits0, cache.misses - misses0
+        batches = s1["engine_batches"] - s0["engine_batches"]
+        delta = {k: s1[k] - s0[k] for k in (
+            "ticks", "target_solves", "dedup_saved", "rows_kept",
+            "rows_repaired", "rows_invalidated")}
+        lines.append(dict(
+            serve=trace, events=len(events),
+            queries=sum(a.via != "mutate" for a in answers),
+            mutations=sum(a.via == "mutate" for a in answers),
+            wall_s=wall, verify_s=paused,
+            answered_via={k: v - s0["answered_via"][k]
+                          for k, v in s1["answered_via"].items()
+                          if v > s0["answered_via"][k]},
+            cache_hit_rate=hits / (hits + misses) if hits + misses else 0.0,
+            engine_batches=batches,
+            mean_occupancy=((sched.occupancy_sum - occ0) / batches
+                            if batches else 0.0),
+            **delta, exact_checked=verify.exact - exact0,
+            inexact=verify.inexact - inexact0, latency=rec.summary(),
+            bytes_in_use=registry.bytes_in_use,
+            dyn_version=registry.get(dyn_name).version,
+            launches=launches_since(wrappers, before)))
+    # the p2p residue: one lone query a static graph on an idle scheduler,
+    # between vertices a landmark reaches (no disconnection proof) whose
+    # rows are neither cached nor landmark rows
+    before = launch_counts(wrappers)
+    targets0 = sched.target_solves
+    for name, cg in static.items():
+        h = registry.get(name)
+        reached = np.isfinite(h.landmarks.D[0])
+        reached[h.landmarks.ids] = False
+        cached = set(cache.keys_for(name))
+        cands = [int(v) for v in np.flatnonzero(reached)[::997]
+                 if h.row_key(int(v)) not in cached]
+        sched.submit(name, cands[0], cands[len(cands) // 2])
+        answers = sched.drain(0.0)
+        verify(answers)
+        check([a.via for a in answers] == ["target"],
+              f"lone p2p on {name} answered via {answers[0].via}")
+    lines.append(dict(serve="p2p_residue", queries=len(static),
+                      target_solves=sched.target_solves - targets0,
+                      launches=launches_since(wrappers, before)))
+    # where a batch tick's time goes: one full tick of SERVE_MAX_BATCH new
+    # sources on the first graph, under the profiler on a CUDA device
+    name, cg = next(iter(static.items()))
+    h = registry.get(name)
+    taken = set(cache.keys_for(name)) | {h.row_key(int(v))
+                                         for v in h.landmarks.ids}
+    fresh = [v for v in range(1, cg.n, cg.n // (4 * SERVE_MAX_BATCH))
+             if h.row_key(v) not in taken]
+    for v in fresh[:SERVE_MAX_BATCH]:
+        sched.submit(name, v)
+    answers = []
+    if torch.device(device).type == "cuda":
+        prof = profile_call(lambda: answers.extend(sched.tick()))
+        prof["idle_share"] = idle_share(prof["busy_s"], prof["wall_s"])
+    else:
+        answers, prof = sched.tick(), {}
+    verify(answers)
+    check(len(answers) == SERVE_MAX_BATCH
+          and {a.via for a in answers} == {"batch"},
+          f"profiled tick answered {[a.via for a in answers]}")
+    lines.append(dict(serve="profiled_tick", graph=name,
+                      sources=SERVE_MAX_BATCH, **prof))
+    for name, (version, src, cg) in verify.first.items():
+        rel = check_oracle(f"serve {name} v{version} source {src}",
+                           verify.rows[name, version, src], oracle(cg, [src]))
+        lines.append(dict(oracle="scipy.sparse.csgraph.dijkstra",
+                          graph=f"{name} v{version}", source=src,
+                          max_rel_err=rel))
+    for name, cg in static.items():
+        before = launch_counts(wrappers)
+        auto, wall = run_engine(cg, 0, "auto", device)
+        moved = launches_since(wrappers, before)
+        counts = launch_counts(wrappers)
+        named, _ = run_engine(cg, 0, auto.engine, device)
+        for k, fn in wrappers.items():      # a comparison, not serving
+            fn.launches = counts[k]
+        check(auto.dist.tobytes() == named.dist.tobytes()
+              and np.array_equal(auto.pred, named.pred),
+              f"auto on {name} differs from {auto.engine}")
+        kernel = KERNEL_OF.get(auto.engine)
+        lines.append(dict(auto=name, engine=auto.engine, wall_s=wall,
+                          launches=moved, bitwise_equal_named=True))
+        if torch.device(device).type == "cuda":
+            check(moved.get(kernel, 0) > 0,
+                  f"auto on {name} routed to {auto.engine}, launched "
+                  f"{moved}")
+    zipf_wall = next(ln["wall_s"] for ln in lines if ln.get("serve") == "zipf")
+    return registry, traces["zipf"], zipf_wall
+
+
+def obs_phase(cg, registry, zipf, walls: dict, zipf_wall: float, device,
+              wrappers: dict, lines: list) -> None:
+    """Observability on the card.  The CSR engines on ``cg`` (sparse-4M)
+    once more under an installed Tracer and CostLog: their files written
+    and validated (no answer chains: no scheduler ran), every record
+    stamped with the device (``"gpu"`` and the card's name), traced
+    against untraced walls (``walls``: engine -> the main path's) and their
+    ratio.  Then the Zipf trace replayed again, traced, by a fresh
+    scheduler and cache on the same ``registry``: answers verified as in
+    the serve phase, every exact answer's chain reconstructed, its files
+    through ``python -m repro_torch.obs.validate``, and its wall against
+    ``zipf_wall``, the untraced replay's.  JAX's ``gate_obs`` asks traced
+    throughput >= 0.9 x untraced; the ratios are printed, not gated.
+    Appends one line a pass to ``lines``."""
+    import os
+    import tempfile
+
+    from repro_torch.obs import (backend_info, finalize_capture,
+                                 install_capture, set_cost_log, set_tracer)
+    from repro_torch.obs.capture import cost_path_for
+    from repro_torch.obs.validate import reconstruct_answer_chains
+    from repro_torch.serve import DistanceCache, MicroBatchScheduler
+
+    card = backend_info(device)
+
+    def stamped(cl, what):
+        bad = {(r.backend, r.device_kind) for r in cl.records} - {card}
+        check(bool(cl.records) and not bad,
+              f"obs {what}: records stamped {bad}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, cl = install_capture()
+        traced = {}
+        try:
+            for eng in SINGLE_ENGINES:
+                _, traced[eng] = run_engine(cg, 0, eng, device)
+        finally:
+            set_tracer(None)
+            set_cost_log(None)
+        path = os.path.join(tmp, "engines.json")
+        errs = finalize_capture(tr, cl, path, check_chains=False)
+        check(not errs, f"obs engines: invalid capture {errs[:3]}")
+        stamped(cl, "engines")
+        check([r.engine for r in cl.records] == list(SINGLE_ENGINES),
+              f"obs engines: records {[r.engine for r in cl.records]}")
+        lines.append(dict(
+            obs="engines", graph="sparse-4M", spans=len(tr.spans),
+            cost_records=len(cl.records), backend=card[0],
+            device_kind=card[1],
+            walls={e: dict(untraced_s=walls[e], traced_s=traced[e],
+                           throughput_ratio=walls[e] / traced[e])
+                   for e in SINGLE_ENGINES}))
+
+        sched = MicroBatchScheduler(registry, DistanceCache(SERVE_CACHE_ROWS),
+                                    max_batch=SERVE_MAX_BATCH)
+        verify = Verifier(registry, device, wrappers)
+        tr, cl = install_capture()
+        try:
+            answers, wall, paused = replay(sched, zipf, verify)
+        finally:
+            set_tracer(None)
+            set_cost_log(None)
+        path = os.path.join(tmp, "zipf.json")
+        errs = finalize_capture(tr, cl, path)
+        check(not errs, f"obs zipf: invalid capture {errs[:3]}")
+        check(reconstruct_answer_chains(tr.to_chrome()) == [],
+              "obs zipf: an answer chain is incomplete")
+        stamped(cl, "zipf")
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.validate", path,
+             cost_path_for(path)], capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=str(
+                Path(__file__).resolve().parent / "src")))
+        check(cli.returncode == 0,
+              f"obs zipf: validate CLI said {cli.stdout} {cli.stderr}")
+        lines.append(dict(
+            obs="zipf_replay", answers=len(answers), spans=len(tr.spans),
+            instants=len(tr.instants), cost_records=len(cl.records),
+            backend=card[0], device_kind=card[1],
+            engines=sorted({r.engine for r in cl.records}),
+            exact_checked=verify.exact, traced_wall_s=wall,
+            untraced_wall_s=zipf_wall, throughput_ratio=zipf_wall / wall,
+            verify_s=paused, validate_cli=cli.stdout.strip().splitlines()))
+
+
 def serial_check(device) -> dict:
     """The paper's Alg. 1 on the device against bellman_csr, bitwise."""
     from repro_torch.core.csr import sparse_csr_graph
@@ -963,6 +1340,7 @@ def main() -> int:
               f"adj={g.adj.nbytes} bytes")
     print(f"graph generation: {time.perf_counter() - t0:.1f} s")
 
+    lines: list = []
     try:
         rng = np.random.default_rng(0)
         kern, pull_lines = kernel_phase(graphs, device, rng)
@@ -974,7 +1352,7 @@ def main() -> int:
         for fn in wrappers.values():
             fn.launches = 0
         walls = {}
-        lines = pull_lines + engine_phase(graphs, device, walls, wrappers)
+        lines += pull_lines + engine_phase(graphs, device, walls, wrappers)
         t0 = time.perf_counter()
         lines += dynamic_phase("sparse-4M", graphs["sparse"], device,
                                wrappers)
@@ -991,7 +1369,28 @@ def main() -> int:
         profiled = {name: (cg, tuple(TWINS)) for name, cg in graphs.items()}
         profiled[big] = (dense[big], ("bellman_kernel",))
         lines += profile_phase(profiled, walls, device)
+        del dense
+        # the serving path: its own launch window
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        registry, zipf, zipf_wall = serve_phase(
+            {"sparse-4M": graphs["sparse"], "hub-1M": graphs["hub"]},
+            graphs["sparse"], device, wrappers, lines)
+        torch.cuda.synchronize()
+        served = {k: fn.launches for k, fn in wrappers.items()}
+        check(served["frontier_relax"] > 0,
+              "frontier_relax was not launched on the serving path")
+        lines.append({"serve_phase_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        obs_phase(graphs["sparse"], registry, zipf,
+                  {e: walls["sparse", e] for e in SINGLE_ENGINES}, zipf_wall,
+                  device, wrappers, lines)
+        lines.append({"obs_phase_s": time.perf_counter() - t0})
     except CheckFailed as e:
+        for line in lines:              # what ran before the failure
+            print(json.dumps(line))
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
@@ -999,7 +1398,9 @@ def main() -> int:
         print(json.dumps(line))
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNELS[k][0],
-             replaces=KERNELS[k][1], launches=launches[k], **kern[k])
+             replaces=KERNELS[k][1], launches=launches[k] + served[k],
+             launches_by_path={"csr_dynamic_dense": launches[k],
+                               "serve": served[k]}, **kern[k])
         for k in KERNELS]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""Shared benchmark helpers: the timing envelope and the device stamp."""
+"""Shared benchmark helpers: the timing envelope, the device stamp and the
+cost-record capture of ``--cost-out``."""
 from __future__ import annotations
 
+import contextlib
 import platform
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -58,3 +60,29 @@ def device_meta(device) -> dict:
     meta |= {"nvidia_smi": out.strip(), "device_name": name or
              meta["device_name"], "power_limit": limit or None}
     return meta
+
+
+@contextlib.contextmanager
+def capture_costs(path: Optional[str]):
+    """With a ``path``, install a process-wide ``CostLog`` for the body
+    (the facade's shim and the dynamic bench emit into it) and, when the
+    body ends normally, write its records there as JSONL after checking
+    them with obs/validate (invalid records exit non-zero).  Yields the log,
+    or None without a path."""
+    if not path:
+        yield None
+        return
+    from repro_torch.obs import CostLog, set_cost_log
+    from repro_torch.obs.validate import validate_cost_records
+
+    log = CostLog()
+    prev = set_cost_log(log)
+    try:
+        yield log
+    finally:
+        set_cost_log(prev)
+    errs = validate_cost_records([r.to_dict() for r in log.records])
+    if errs or not log.records:
+        raise SystemExit(f"cost records invalid: {errs[:5] or 'none'}")
+    log.write_jsonl(path)
+    print(f"wrote {len(log.records)} cost records to {path}")

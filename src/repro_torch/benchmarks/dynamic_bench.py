@@ -22,11 +22,12 @@ counting base-arc slots) and is at least ``min_ratio`` times faster (2.0
 at n = 10000; 1.2 at the smoke size, where fixed costs dominate).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.dynamic_bench \
-        [--smoke] [--device cuda|cpu] [--out PATH]
+        [--smoke] [--device cuda|cpu] [--out PATH] [--cost-out PATH]
 
 writes ``BENCH_torch_dynamic.json`` (never the JAX package's
-``BENCH_dynamic.json``).  ``--cost-out`` of the JAX bench comes with
-``obs/``.
+``BENCH_dynamic.json``).  ``--cost-out`` also writes two cost records per
+counted round (the repair and the full re-solve, which bypass the facade's
+shim), stamped with the device.
 """
 from __future__ import annotations
 
@@ -36,10 +37,11 @@ import time
 
 import numpy as np
 
-from repro_torch.benchmarks.common import REPO, device_meta
+from repro_torch.benchmarks.common import REPO, capture_costs, device_meta
 from repro_torch.core import csr as C
 from repro_torch.core.api import resolve_device
 from repro_torch.dynamic import DynamicGraph, repair_sssp, solve_dynamic
+from repro_torch.obs.profile import backend_info, get_cost_log
 from repro_torch.serve.workload import EdgeChurn
 
 DEFAULT_OUT = str(REPO / "BENCH_torch_dynamic.json")
@@ -49,8 +51,6 @@ ROUNDS = 12            # counted rounds per batch size
 WARMUP = 2             # discarded
 SOURCE = 0
 OVERLAY_CAPACITY = 512  # > ROUNDS * max batch: no mid-measurement compaction
-
-NOT_PORTED = {"--cost-out": "per-round cost records come with obs/"}
 
 
 def apply_batch(dyn: DynamicGraph, churn: EdgeChurn, size: int) -> None:
@@ -104,6 +104,18 @@ def run_batch_size(n: int, B: int, seed: int, device) -> dict:
             e_rep.append(res.edges_relaxed)
             e_full.append(full.edges_relaxed)
             cones.append(stats.cone)
+            cl = get_cost_log()
+            if cl.enabled:
+                be, kind = backend_info(device)
+                m_live = int(dyn.nnz_live)
+                for engine, r, dt in (("repair", res, dt_rep),
+                                      ("frontier_dynamic", full, dt_full)):
+                    cl.emit(engine=engine, n=n, m=m_live,
+                            sweeps=r.sweeps or 0,
+                            edges_relaxed=r.edges_relaxed or 0,
+                            wall_ms=dt * 1e3,
+                            converged=r.converged is not False, batch=B,
+                            backend=be, device_kind=kind)
     med = lambda xs: float(np.median(xs))
     rec = {
         "n": n, "m": 3 * n, "batch_edges": B, "rounds": ROUNDS,
@@ -124,13 +136,16 @@ def run_batch_size(n: int, B: int, seed: int, device) -> dict:
     return rec
 
 
-def run(smoke: bool = False, out: str = DEFAULT_OUT, device="cuda") -> str:
-    """Run the bench on ``device``, write ``out``, then exit non-zero if
-    the gate fails (after writing)."""
+def run(smoke: bool = False, out: str = DEFAULT_OUT, device="cuda",
+        cost_out=None) -> str:
+    """Run the bench on ``device``, write ``out`` (and with ``cost_out`` the
+    cost records), then exit non-zero if the gate fails (after writing) or
+    the cost records are invalid."""
     dev = resolve_device(device)
     n = 1000 if smoke else 10000
-    records = [run_batch_size(n, B, seed=n + B, device=dev)
-               for B in BATCH_SIZES]
+    with capture_costs(cost_out):
+        records = [run_batch_size(n, B, seed=n + B, device=dev)
+                   for B in BATCH_SIZES]
     min_ratio = 2.0 if n >= 10000 else 1.2
     points, ok = [], True
     for r in records:
@@ -162,7 +177,6 @@ def run(smoke: bool = False, out: str = DEFAULT_OUT, device="cuda") -> str:
             "smoke": smoke,
             "rounds": ROUNDS, "warmup": WARMUP,
             "overlay_capacity": OVERLAY_CAPACITY, "source": SOURCE,
-            "not_ported": NOT_PORTED,
         },
         "results": records,
         "gate": gate,
@@ -184,8 +198,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--cost-out", default=None, metavar="PATH",
+                    help="write two cost records per counted round (JSONL)")
     args = ap.parse_args(argv)
-    run(args.smoke, out=args.out, device=args.device)
+    run(args.smoke, out=args.out, device=args.device,
+        cost_out=args.cost_out)
 
 
 if __name__ == "__main__":

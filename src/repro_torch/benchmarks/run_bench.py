@@ -6,7 +6,8 @@ and writes one record, ``BENCH_torch_sssp.json`` (never the JAX
 package's ``BENCH_sssp.json``):
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run_bench \
-        [--smoke | --full] [--device cuda|cpu] [--out PATH] [--repeats N]
+        [--smoke | --full] [--device cuda|cpu] [--out PATH] [--repeats N] \
+        [--cost-out PATH]
 
 Every CSR-family record carries the engine's ``edges_relaxed``; every
 ``*_kernel`` record the launches of its CUDA kernel in that solve
@@ -30,9 +31,12 @@ corpus to the paper's 40,000 vertices.  The per-engine caps are JAX's for
 kernel engines exists because Pallas runs in interpret mode on a CPU: on
 the GPU it is lifted, on the CPU it stays.
 
+``--cost-out PATH`` writes one cost record per engine call (the facade's
+observability shim, repro_torch/obs), each stamped with the device, and
+exits non-zero if they are not schema-valid.
+
 Not ported yet, as ``meta["not_ported"]`` records: the sharded leg
-(``--devices``, ``gate_sharded``) comes with the sharded slice, and
-``--cost-out`` with ``obs/``.
+(``--devices``, ``gate_sharded``) comes with the sharded slice.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ import time
 
 import numpy as np
 
-from repro_torch.benchmarks.common import REPO, device_meta, time_engine
+from repro_torch.benchmarks.common import (REPO, capture_costs, device_meta,
+                                           time_engine)
 from repro_torch.core import csr as C
 from repro_torch.core import graph as G
 from repro_torch.core.api import resolve_device, shortest_paths
@@ -87,7 +92,6 @@ N_SOURCES = 4                     # batch width for multisource_csr
 NOT_PORTED = {
     "gate_sharded": "the sharded engines come with the sharded slice",
     "--devices": "the sharded engines come with the sharded slice",
-    "--cost-out": "per-solve cost records come with obs/",
 }
 
 
@@ -279,10 +283,27 @@ def _gate_delta(results, min_n: int = 10000):
 
 
 def run(smoke: bool = False, full: bool = False, repeats: int = 3,
-        out: str = DEFAULT_OUT, device="cuda") -> str:
-    """Run the bench on ``device``, write ``out``, then exit non-zero on a
-    bitwise disagreement or a failing gate (after writing)."""
+        out: str = DEFAULT_OUT, device="cuda", cost_out=None) -> str:
+    """Run the bench on ``device``, write ``out`` (and with ``cost_out`` the
+    cost records), then exit non-zero on a bitwise disagreement, a failing
+    gate or invalid cost records (after writing)."""
     dev = resolve_device(device)
+    with capture_costs(cost_out):
+        doc = _measure(smoke, full, repeats, dev)
+    with open(out, "w") as f:
+        json.dump(doc, f, indent=1)
+        f.write("\n")
+    print(f"\nwrote {len(doc['results'])} records to {out}")
+    bad = [(r["corpus"], r["n"], r["engine"]) for r in doc["results"]
+           if not r["agrees_bitwise"]]
+    if bad:
+        raise SystemExit(f"bitwise disagreement in {bad}")
+    from repro_torch.benchmarks.gates import enforce
+    enforce(doc)
+    return out
+
+
+def _measure(smoke: bool, full: bool, repeats: int, dev) -> dict:
     caps = engine_caps(smoke, dev)
     dense_cap = 100 if smoke else 2000
     sparse_cap = 1000 if smoke else (40000 if full else 20000)
@@ -298,7 +319,7 @@ def run(smoke: bool = False, full: bool = False, repeats: int = 3,
     for corpus in ("road", "hub"):
         for n in (DELTA_NS_SMOKE if smoke else DELTA_NS):
             results += _bench_delta_point(corpus, n, caps, repeats, dev)
-    doc = {
+    return {
         "schema": 1,
         "meta": {
             "created_unix": int(time.time()),
@@ -311,17 +332,6 @@ def run(smoke: bool = False, full: bool = False, repeats: int = 3,
         "gate": _gate(results),
         "gate_delta": _gate_delta(results),
     }
-    with open(out, "w") as f:
-        json.dump(doc, f, indent=1)
-        f.write("\n")
-    print(f"\nwrote {len(results)} records to {out}")
-    bad = [(r["corpus"], r["n"], r["engine"]) for r in results
-           if not r["agrees_bitwise"]]
-    if bad:
-        raise SystemExit(f"bitwise disagreement in {bad}")
-    from repro_torch.benchmarks.gates import enforce
-    enforce(doc)
-    return out
 
 
 def main(argv=None) -> None:
@@ -335,9 +345,11 @@ def main(argv=None) -> None:
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--cost-out", default=None, metavar="PATH",
+                    help="write one cost record per engine call (JSONL)")
     args = ap.parse_args(argv)
     run(args.smoke, args.full, repeats=args.repeats, out=args.out,
-        device=args.device)
+        device=args.device, cost_out=args.cost_out)
 
 
 if __name__ == "__main__":

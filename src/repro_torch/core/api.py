@@ -23,8 +23,18 @@ Each engine gives the JAX engine's answers bit for bit: the same ``dist``,
 the same ``pred`` (lowest-u tie-break), the same ``sweeps``,
 ``edges_relaxed`` and ``converged`` (None for the dense engines, as in
 JAX).  The dense engines densify a ``CsrGraph`` input (O(n²)).  The sharded
-engines and ``engine="auto"`` (the serving dispatch) belong to later slices
-of the port and raise ``NotImplementedError``.
+engines belong to a later slice of the port and raise
+``NotImplementedError``.
+
+``engine="auto"`` asks the serving layer's dispatch policy
+(serve/dispatch.py) for the engine: on the CPU it routes as the JAX
+package's default policy does (``frontier``, ``multisource_csr``, or
+``delta_stepping`` for large graphs whose weight profile allows it); on a
+CUDA device it names the kernel twin (``frontier_kernel``,
+``delta_stepping_kernel``), whose answers and counters are the same.
+
+With a tracer or a cost log installed (repro_torch/obs), every solve runs
+inside a ``solve`` span and emits one cost record stamped with its device.
 
 ``device`` defaults to ``"cuda"``, which needs a GPU; ``device="cpu"`` runs
 every engine with the kernels' plain PyTorch versions.
@@ -119,10 +129,6 @@ def resolve_device(device) -> torch.device:
 def _validate(engine, delta, target):
     """Eager checks, before any staging: unknown or unported engines, a bad
     Δ, and arguments an engine would silently ignore."""
-    if engine == "auto":
-        raise NotImplementedError(
-            "engine='auto' is the serving dispatch; it comes with the "
-            "serving slice of the port")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     if delta is not None:
@@ -152,7 +158,104 @@ def _validate(engine, delta, target):
     return delta
 
 
+def _edge_count(g) -> int:
+    """Cheap arc count for the cost record: exact for CSR and dynamic
+    inputs, 0 for dense ones (counting finite entries would cost O(n²))."""
+    from repro_torch.dynamic.overlay import DynamicGraph
+
+    if isinstance(g, DynamicGraph):
+        return int(g.nnz_live)
+    if isinstance(g, csr_mod.CsrGraph):
+        return int(g.nnz)
+    return 0
+
+
+def _resolve_auto(g, source, *, engine, delta, target, device):
+    """Resolve ``engine="auto"`` through the serving layer's dispatch seam
+    (serve/dispatch.py): the default policy for ``device`` picks the engine
+    and may give a Δ, which binds only when the caller passed none.
+    Returns the concrete ``(engine, delta)``; other engines pass through."""
+    if engine != "auto":
+        return engine, delta
+    from repro_torch.serve.dispatch import default_policy
+
+    multi = np.ndim(source) > 0
+    choice = default_policy(device).choose(
+        g, kind="batch" if multi else ("p2p" if target is not None
+                                       else "single"))
+    engine = choice.engine
+    if (delta is None and choice.delta is not None
+            and engine in _DELTA_CONSUMERS):
+        delta = float(choice.delta)
+    return engine, delta
+
+
 def shortest_paths(
+    g: "graph_mod.Graph | csr_mod.CsrGraph | DynamicGraph | np.ndarray",
+    source,
+    *,
+    engine: str = "serial",
+    device="cuda",
+    max_sweeps: int | None = None,
+    delta: Union[float, str, None] = None,
+    target: int | None = None,
+    target_lb: float | None = None,
+) -> SsspResult:
+    """Observability shim over :func:`_shortest_paths` (the facade, same
+    arguments and docs).  With a tracer or cost log installed
+    (repro_torch/obs) the solve runs inside a ``solve`` span and emits one
+    cost record (engine, n, m, sweeps, edges_relaxed, wall_ms, and the
+    solve's device); with both disabled this adds two attribute reads and
+    one branch."""
+    from repro_torch.obs.profile import get_cost_log
+    from repro_torch.obs.trace import get_tracer
+
+    tr = get_tracer()
+    cl = get_cost_log()
+    if not (tr.enabled or cl.enabled):
+        return _shortest_paths(g, source, engine=engine, device=device,
+                               max_sweeps=max_sweeps, delta=delta,
+                               target=target, target_lb=target_lb)
+
+    import time as _time
+
+    from repro_torch.obs.profile import backend_info
+
+    # resolve "auto" here so the record carries the routed engine's Δ; the
+    # facade passes the concrete engine straight through.
+    engine, delta = _resolve_auto(g, source, engine=engine, delta=delta,
+                                  target=target, device=device)
+    m = _edge_count(g)
+    t0 = _time.perf_counter()
+    with tr.span("solve", engine=engine) as sp:
+        res = _shortest_paths(g, source, engine=engine, device=device,
+                              max_sweeps=max_sweeps, delta=delta,
+                              target=target, target_lb=target_lb)
+        wall_ms = (_time.perf_counter() - t0) * 1e3
+        n = int(np.shape(res.dist)[-1])
+        batch = int(np.shape(res.dist)[0]) if np.ndim(res.dist) == 2 else 1
+        sweeps = 0 if res.sweeps is None else int(res.sweeps)
+        edges = 0 if res.edges_relaxed is None else int(res.edges_relaxed)
+        conv = True if res.converged is None else bool(res.converged)
+        sp.set(engine=res.engine, n=n, m=m, batch=batch, sweeps=sweeps,
+               edges_relaxed=edges, converged=conv)
+    # the Δ the solve used: an explicit width verbatim; the delta engines'
+    # None / "auto" resolve per graph through the memoized auto_delta.
+    if isinstance(delta, (int, float)) and not isinstance(delta, bool):
+        dval = float(delta)
+    elif (res.engine in DELTA_ENGINES
+          and isinstance(g, csr_mod.CsrGraph)):
+        dval = float(auto_delta(g))
+    else:
+        dval = 0.0
+    backend, kind = backend_info(device)
+    cl.emit(engine=res.engine, n=n, m=m, batch=batch, nprocs=1, delta=dval,
+            sweeps=sweeps, edges_relaxed=edges, wall_ms=wall_ms,
+            converged=conv, backend=backend, device_kind=kind)
+    return res
+
+
+def _shortest_paths(
     g: "graph_mod.Graph | csr_mod.CsrGraph | DynamicGraph | np.ndarray",
     source,
     *,
@@ -180,7 +283,12 @@ def shortest_paths(
     final; the row is partial (entries above ``dist[target]`` may sit above
     their fixpoint), so ``pred`` is None.  ``target_lb=`` adds an admissible
     lower bound on the distance as a second stopping rule.
+
+    ``engine="auto"`` takes the engine (and, when ``delta`` is None, a Δ)
+    from ``serve.dispatch.default_policy(device)``.
     """
+    engine, delta = _resolve_auto(g, source, engine=engine, delta=delta,
+                                  target=target, device=device)
     delta = _validate(engine, delta, target)
     dev = resolve_device(device)
 

@@ -102,6 +102,10 @@ class CsrGraph:
         cnt = int((np.isfinite(self.weights) & (self.weights > 0)).sum())
         return cnt if self.directed else cnt // 2
 
+    @property
+    def nbytes(self) -> int:
+        return self.indptr.nbytes + self.indices.nbytes + self.weights.nbytes
+
     def _memo(self, key, build):
         # writing through __dict__ sidesteps the frozen-dataclass __setattr__
         if key not in self.__dict__:

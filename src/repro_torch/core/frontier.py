@@ -44,12 +44,15 @@ from repro_torch.core.bellman_csr import (_start, csr_operands,
                                           predecessors_from_dist_csr)
 
 
-def frontier_operands(cg, *, device) -> dict:
+def frontier_operands(cg, *, device, base_ops: Optional[dict] = None) -> dict:
     """Stage a core.csr.CsrGraph for the frontier engines: the incoming
     arrays of :func:`csr_operands` (for the pred recovery) plus the outgoing
     CSR.  The out-indptr (int32) gets one extra trailing entry, so the
-    sentinel id n indexes an empty row."""
-    ops = csr_operands(cg, device=device)
+    sentinel id n indexes an empty row.  ``base_ops`` reuses already-staged
+    :func:`csr_operands` tensors instead of staging src / dst / w again
+    (serve/registry.py holds both views on one handle)."""
+    ops = (dict(base_ops) if base_ops is not None
+           else csr_operands(cg, device=device))
     indptr, out_dst, out_w = cg.out_csr()
     indptr_s = np.concatenate([indptr, indptr[-1:]]).astype(np.int32)
     ops["out_indptr"] = torch.tensor(indptr_s, device=device)

@@ -1,7 +1,8 @@
 """The port's benches at smoke size on the CPU: run_bench and dynamic_bench
-write their JSON, every gate passes, every kernel engine's record carries
-its kernel's launch count, and the work counters equal those of the JAX
-benches' smoke records on the same points (exactly: they are counts)."""
+write their JSON and, with ``--cost-out``, schema-valid cost records, every
+gate passes, every kernel engine's record carries its kernel's launch
+count, and the work counters equal those of the JAX benches' smoke records
+on the same points (exactly: they are counts)."""
 import json
 
 import numpy as np
@@ -24,18 +25,24 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def docs(tmp_path_factory):
-    """Both port benches run once at smoke size on the CPU."""
+    """Both port benches run once at smoke size on the CPU, with their cost
+    records."""
     out = tmp_path_factory.mktemp("bench")
+    costs = {name: str(out / f"{name}.cost.jsonl")
+             for name in ("sssp", "dynamic")}
     prev = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         paths = (run_bench.run(smoke=True, device="cpu", repeats=1,
-                               out=str(out / "BENCH_torch_sssp.json")),
+                               out=str(out / "BENCH_torch_sssp.json"),
+                               cost_out=costs["sssp"]),
                  dynamic_bench.run(smoke=True, device="cpu",
-                                   out=str(out / "BENCH_torch_dynamic.json")))
+                                   out=str(out / "BENCH_torch_dynamic.json"),
+                                   cost_out=costs["dynamic"]))
     finally:
         torch.set_num_threads(prev)
-    return {name: json.loads(open(p).read()) | {"path": p}
+    return {name: json.loads(open(p).read()) | {"path": p,
+                                                "cost_path": costs[name]}
             for name, p in zip(("sssp", "dynamic"), paths)}
 
 
@@ -52,7 +59,29 @@ def test_smoke_bench_writes_its_json_and_every_gate_passes(docs, name):
     meta = doc["meta"]
     assert meta["smoke"] is True and meta["device"] == "cpu"
     assert meta["torch"] == torch.__version__ and meta["power_limit"] is None
-    assert "--cost-out" in meta["not_ported"]
+    assert "--cost-out" not in meta.get("not_ported", {})
+
+
+@pytest.mark.parametrize("name", ["sssp", "dynamic"])
+def test_cost_out_writes_schema_valid_records_of_the_device(docs, name):
+    from repro_torch.obs.validate import validate_cost_records
+
+    rows = [json.loads(line)
+            for line in open(docs[name]["cost_path"]).read().splitlines()]
+    assert rows and validate_cost_records(rows) == []
+    assert {(r["backend"], r["device_kind"]) for r in rows} == {("cpu",
+                                                                 "cpu")}
+    engines = {r["engine"] for r in rows}
+    if name == "dynamic":
+        assert engines == {"repair", "frontier_dynamic"}
+        assert len(rows) == (2 * dynamic_bench.ROUNDS
+                             * len(dynamic_bench.BATCH_SIZES))
+    else:
+        recs = {r["engine"] for r in docs["sssp"]["results"]}
+        assert engines == recs
+    from repro_torch.obs import get_cost_log
+
+    assert not get_cost_log().enabled           # the log is uninstalled
 
 
 def test_run_bench_records_kernel_launches_and_bitwise_agreement(docs):

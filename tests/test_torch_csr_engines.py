@@ -241,7 +241,7 @@ def test_dense_graph_input_converts_like_jax():
     ("bellman_csr_sharded", {}, NotImplementedError),
     ("frontier_sharded", {}, NotImplementedError),
     ("multisource_csr_sharded", {}, NotImplementedError),
-    ("auto", {}, NotImplementedError),
+    ("auto", {"delta": "wide"}, ValueError),
 ])
 def test_eager_validation_and_unported_engines(engine, kw, exc):
     tg = TC.sparse_csr_graph(20)

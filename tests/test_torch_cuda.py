@@ -258,3 +258,82 @@ def test_dynamic_repair_on_gpu_matches_cpu(cuda):
             assert a.dist.tobytes() == r.dist.tobytes()
             assert np.array_equal(a.pred, r.pred)
         assert (a.sweeps, a.edges_relaxed) == (b.sweeps, b.edges_relaxed)
+
+
+def _serve_stack(device, cg, landmarks=0):
+    from repro_torch.serve import (DistanceCache, GraphRegistry,
+                                   MicroBatchScheduler)
+
+    registry = GraphRegistry(device=device)
+    sched = MicroBatchScheduler(registry, DistanceCache(16), max_batch=4)
+    registry.register("g", cg, landmarks=landmarks)
+    return registry, sched
+
+
+def test_registry_on_cuda_stages_once_and_serves_p2p_through_the_kernel(
+        cuda):
+    """A CUDA registry stages each view once on the card (the frontier view
+    on the segment-min tensors), counts each tensor once, hands out the
+    frontier_relax sweep, and a served p2p answer launches the kernel and
+    equals the CPU stack's answer; a batched tick equals it too."""
+    from repro_torch.kernels.frontier_relax import ops as frontier_ops
+
+    cg = TC.sparse_csr_graph(3000, seed=1)
+    registry, sched = _serve_stack(cuda, cg, landmarks=4)
+    _, cpu_sched = _serve_stack("cpu", cg, landmarks=4)
+    h = registry.get("g")
+    ops = h.frontier_ops()
+    assert h.frontier_ops() is ops and h.csr_ops()["src"] is ops["src"]
+    assert all(t.is_cuda for t in ops.values())
+    # the landmarks staged the segment-min view; each tensor counts once
+    assert registry.bytes_in_use == (cg.nbytes + h.landmarks.nbytes
+                                     + sum(t.nbytes for t in ops.values()))
+    assert h.frontier_sweep_fn().__module__ == frontier_ops.__name__
+    ids = set(h.landmarks.ids.tolist())
+    s = next(v for v in range(cg.n) if v not in ids)
+    t = next(v for v in range(cg.n - 1, 0, -1) if v not in ids and v != s)
+    before = frontier_relax.launches
+    answers = []
+    for sc in (sched, cpu_sched):
+        sc.submit("g", s, t)
+        answers += sc.drain()
+    assert [a.via for a in answers] == ["target", "target"]
+    assert frontier_relax.launches > before
+    assert np.float32(answers[0].value) == np.float32(answers[1].value)
+    for sc in (sched, cpu_sched):
+        for src in (s, 5, 9):
+            sc.submit("g", src)
+    rows = [[a.value.tobytes() for a in sc.drain()]
+            for sc in (sched, cpu_sched)]
+    assert rows[0] == rows[1]
+    assert sched.snapshot() == cpu_sched.snapshot()
+
+
+def test_cuda_cost_record_names_the_card(cuda):
+    from repro_torch.obs import CostLog, set_cost_log
+
+    cl = CostLog()
+    prev = set_cost_log(cl)
+    try:
+        res = shortest_paths(TC.sparse_csr_graph(500), 0, engine="auto",
+                             device=cuda)
+    finally:
+        set_cost_log(prev)
+    (r,) = cl.records
+    assert res.engine == r.engine == "frontier_kernel"
+    assert (r.backend, r.device_kind) == ("gpu",
+                                          torch.cuda.get_device_name(0))
+
+
+def test_cuda_serving_raises_without_a_gpu(monkeypatch):
+    """No quiet move to the CPU: a registry, policy or auto solve built for
+    "cuda" raises when no GPU is present (runs on any machine)."""
+    from repro_torch.serve import DispatchPolicy, GraphRegistry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: GraphRegistry(device="cuda"), GraphRegistry,
+                 lambda: DispatchPolicy(device="cuda"), DispatchPolicy):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shortest_paths(TC.sparse_csr_graph(20), 0, engine="auto")
