@@ -63,14 +63,27 @@ the kernels' operation bounds use them) and then:
    Zipf replay again under a ``Tracer`` and a ``CostLog``, their files
    through the port's ``validate`` (the CLI for the replay's), every cost
    record stamped ``"gpu"`` and the card's name, and traced against
-   untraced walls (printed, not gated).
+   untraced walls (printed, not gated);
+8. the serving drivers (:func:`drivers_phase`), in their own launch
+   window: ``repro_torch.launch.sssp_serve`` at ``--smoke`` (checked
+   against ``serial``), at its defaults (checked against fresh
+   ``frontier_kernel`` rows, each held to scipy) and ``--chaos --smoke``,
+   and ``repro_torch.launch.sssp_dynamic --smoke``, all ``--device
+   cuda``; one ``{"driver": ...}`` line a run;
+9. self-tuning (:func:`tune_phase`), in its own launch window: a
+   calibration over the full grid, the fitted model, and the threshold
+   policy raced against ``TunedPolicy`` on tune_bench's full legs (answers
+   bitwise equal, the model routing, each chosen engine's kernel launched,
+   the race's cost log replayed green), then the serving registry's
+   sparse-4M and hub-1M routed through the tuned policy; one
+   ``{"tune": ...}`` line.
 
 It prints the card, the measured rates, one JSON line per CSR-kernel
 shape, per engine run, per dynamic batch size, per serve trace, per obs
-pass and per graph's (and the target query's and the dynamic phase's)
-kernel launches, one ``{"kernels": ...}`` line (``launches`` summed over
-the two counted windows, ``launches_by_path`` split), and last
-``{"ok": true, "device": ...}``.
+pass, per driver run and per graph's (and the target query's and the
+dynamic phase's) kernel launches, one ``{"kernels": ...}`` line
+(``launches`` summed over the four counted windows, ``launches_by_path``
+split), and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line; so does a machine
 without a CUDA GPU.
 """
@@ -928,120 +941,15 @@ def dense_engine_phase(dense: dict, device, walls: dict, rng,
     return lines
 
 
-def replay(sched, events, verify) -> tuple[list, float, float]:
-    """The open-loop replay of the JAX serving driver
-    (repro/launch/sssp_serve.py's ``replay``, copied, with the churn
-    trace's mutation events submitted into the same clock): events are
-    submitted as the wall clock passes their arrival and the scheduler
-    ticks whenever work is pending, stamping each answer's ``done_at``.
-    ``verify(answers)`` runs after every tick with the clock stopped, so
-    checking leaves arrivals and latencies as they were.  Returns (answers,
-    replay wall s, verification s)."""
-    from repro_torch.serve import MutationEvent
-
-    events = sorted(events, key=lambda e: e.arrival)
-    t0, paused = time.perf_counter(), 0.0
-
-    def clock():
-        return time.perf_counter() - t0 - paused
-
-    i, answers = 0, []
-    while i < len(events) or sched.pending:
-        now = clock()
-        while i < len(events) and events[i].arrival <= now:
-            e = events[i]
-            if isinstance(e, MutationEvent):
-                sched.submit_mutation(e.graph, e.op, e.u, e.v, e.w,
-                                      arrival=e.arrival)
-            else:
-                sched.submit(e.graph, e.source, e.target, arrival=e.arrival,
-                             deadline=e.deadline)
-            i += 1
-        if sched.pending:
-            out = sched.tick(now)
-            done = clock()
-            for a in out:
-                a.done_at = done
-            answers.extend(out)
-            v0 = time.perf_counter()
-            verify(out)
-            paused += time.perf_counter() - v0
-        elif i < len(events):
-            time.sleep(min(events[i].arrival - now, 1e-3))
-    return answers, clock(), paused
-
-
-class Verifier:
-    """Holds every served answer to a fresh solve: each ``exact=True``
-    answer bitwise equal to ``shortest_paths(..., engine="frontier_kernel")``
-    of its (graph, version, source) — for a dynamic graph on the snapshot
-    of the version that answered — one solve memoized per key, and a p2p
-    answer's ``dist[target]`` to that row's.  Every answer of these
-    fault-free replays must be ``ok``; inexact ones are counted, not
-    compared.  The reference solves run outside any installed tracer and
-    cost log, and their kernel launches are taken back out of the counts:
-    checking is not serving."""
-
-    def __init__(self, registry, device, wrappers: dict):
-        self.registry, self.device, self.wrappers = registry, device, wrappers
-        self.rows: dict = {}
-        self.first: dict = {}     # graph -> (version, source, CsrGraph)
-        self.exact = self.inexact = 0
-
-    def ref(self, graph: str, version: int, source: int):
-        key = (graph, version, source)
-        if key not in self.rows:
-            h = self.registry.get(graph)
-            cg = h.dyn.snapshot() if h.dyn is not None else h.cg
-            self.first.setdefault(graph, (version, source, cg))
-            res, _ = run_engine(cg, source, "frontier_kernel", self.device)
-            self.rows[key] = res.dist
-        return self.rows[key]
-
-    def __call__(self, answers) -> None:
-        from repro_torch.obs import set_cost_log, set_tracer
-
-        counts = launch_counts(self.wrappers)
-        tracer, cost_log = set_tracer(None), set_cost_log(None)
-        try:
-            self._check(answers)
-        finally:
-            set_tracer(tracer)
-            set_cost_log(cost_log)
-            for k, fn in self.wrappers.items():
-                fn.launches = counts[k]
-
-    def _check(self, answers) -> None:
-        import numpy as np
-
-        for a in answers:
-            q = a.query
-            check(a.status == "ok", f"serve: {q} answered {a.status} "
-                                    f"({a.error})")
-            if a.via == "mutate":
-                continue
-            if not a.exact:
-                self.inexact += 1
-                continue
-            ref = self.ref(q.graph, self.registry.get(q.graph).version,
-                           q.source)
-            if q.target is None:
-                ok = np.asarray(a.value).tobytes() == ref.tobytes()
-            else:
-                got, want = np.float32(a.value), ref[q.target]
-                ok = got == want or (np.isinf(got) and np.isinf(want))
-            check(ok, f"serve: {q} via {a.via} differs from a fresh "
-                      f"frontier_kernel solve")
-            self.exact += 1
-
-
 def serve_phase(static: dict, dyn_base, device, wrappers: dict,
                 lines: list) -> tuple:
     """The serving path on the card: a ``GraphRegistry(device)`` holding
     the graphs of ``static`` (name -> CsrGraph) and a ``DynamicGraph`` of
     ``dyn_base``, each with its landmarks; one scheduler replaying three
     traces in turn (Zipf and point-to-point over the static graphs, churn
-    over the dynamic one) with a :class:`Verifier` after every tick.  At
+    over the dynamic one) through ``sssp_serve``'s open-loop ``replay``
+    (repro_torch.launch.sssp_serve) with its ``Verifier`` after every
+    tick, every exact answer held to a fresh ``frontier_kernel`` solve.  At
     these sizes a tick of 16 sources takes long against the traces' 2000
     arrivals a second, so the open loop keeps a backlog and a tick's
     residue is rarely one lone point-to-point query; so a lone p2p query
@@ -1055,6 +963,7 @@ def serve_phase(static: dict, dyn_base, device, wrappers: dict,
     import torch
 
     from repro_torch.dynamic import DynamicGraph
+    from repro_torch.launch.sssp_serve import Verifier, replay
     from repro_torch.serve import (DistanceCache, GraphRegistry,
                                    LatencyRecorder, MicroBatchScheduler,
                                    make_churn_trace, make_trace)
@@ -1072,7 +981,7 @@ def serve_phase(static: dict, dyn_base, device, wrappers: dict,
                       bytes_in_use=registry.bytes_in_use))
     cache = DistanceCache(capacity=SERVE_CACHE_ROWS)
     sched = MicroBatchScheduler(registry, cache, max_batch=SERVE_MAX_BATCH)
-    verify = Verifier(registry, device, wrappers)
+    verify = Verifier(registry, reference="frontier_kernel", device=device)
     sizes = [(name, cg.n) for name, cg in static.items()]
     traces = {
         "zipf": make_trace("zipf", sizes, num_queries=SERVE_QUERIES,
@@ -1207,6 +1116,7 @@ def obs_phase(cg, registry, zipf, walls: dict, zipf_wall: float, device,
     from repro_torch.obs import (backend_info, finalize_capture,
                                  install_capture, set_cost_log, set_tracer)
     from repro_torch.obs.capture import cost_path_for
+    from repro_torch.launch.sssp_serve import Verifier, replay
     from repro_torch.obs.validate import reconstruct_answer_chains
     from repro_torch.serve import DistanceCache, MicroBatchScheduler
 
@@ -1242,7 +1152,8 @@ def obs_phase(cg, registry, zipf, walls: dict, zipf_wall: float, device,
 
         sched = MicroBatchScheduler(registry, DistanceCache(SERVE_CACHE_ROWS),
                                     max_batch=SERVE_MAX_BATCH)
-        verify = Verifier(registry, device, wrappers)
+        verify = Verifier(registry, reference="frontier_kernel",
+                          device=device)
         tr, cl = install_capture()
         try:
             answers, wall, paused = replay(sched, zipf, verify)
@@ -1272,6 +1183,127 @@ def obs_phase(cg, registry, zipf, walls: dict, zipf_wall: float, device,
             verify_s=paused, validate_cli=cli.stdout.strip().splitlines()))
 
 
+#: the serving drivers as a user runs them (argv after the module name):
+#: sssp_serve's smoke as JAX's (checked against serial), its defaults (n =
+#: 10,000, 2 graphs, 3 scenarios, 400 queries at 500/s; checked against
+#: fresh frontier_kernel rows, each held to scipy), the chaos smoke, and
+#: sssp_dynamic's smoke (checked against serial)
+DRIVER_RUNS = (
+    ("sssp_serve", ("--smoke",)),
+    ("sssp_serve", ("--verify", "--verify-engine", "frontier_kernel")),
+    ("sssp_serve", ("--chaos", "--smoke")),
+    ("sssp_dynamic", ("--smoke",)),
+)
+
+
+def drivers_phase(device, wrappers: dict, lines: list) -> None:
+    """The serving drivers on the card, in process, each with ``--device
+    cuda``: every run of :data:`DRIVER_RUNS`; a mismatch exits the run
+    (``SystemExit``), which fails the run.  One ``{"driver": ...}`` line a
+    run: its wall, per scenario p50 / p99 / queries per second (where the
+    run keeps a wall clock), answers by path, rows checked, and the kernel
+    launches of the run (the drivers' verifiers take their reference
+    solves' launches back out)."""
+    import importlib
+
+    for module, argv in DRIVER_RUNS:
+        main = importlib.import_module(f"repro_torch.launch.{module}").main
+        args = [*argv, "--device", str(device)]
+        before = launch_counts(wrappers)
+        report, wall = timed(lambda: main(args))
+        line = dict(driver=f"{module} {' '.join(argv)}", wall_s=wall,
+                    launches=launches_since(wrappers, before))
+        if "answers" in report and isinstance(report["answers"], list):
+            line |= {k: v for k, v in report.items() if k != "answers"}
+            line["answers"] = len(report["answers"])
+        elif module == "sssp_serve":
+            line["scenarios"] = {
+                scen: {k: r[k] for k in (
+                    "queries", "p50_ms", "p99_ms", "qps", "answered_via",
+                    "verified_rows", "exact_checked", "oracle_max_rel_err")
+                    if k in r} for scen, r in report.items()}
+        else:
+            line |= report
+        lines.append(line)
+
+
+def tune_phase(handles: dict, device, wrappers: dict, lines: list) -> None:
+    """Self-tuning on the card: calibrate over the full grid at one device
+    (``repro_torch.tune.calibrate``; the file goes to the ignored
+    ``build/``), fit the model, and race ``engine="auto"`` under the
+    threshold policy and ``TunedPolicy(device=cuda)`` on tune_bench's full
+    legs with a CostLog installed.  Hard checks: the two policies' answers
+    bitwise equal on every leg, the model routed at least one leg, every
+    engine a policy chose launched its kernel in that leg's window, and the
+    race's own cost records replay green against the fresh model
+    (``replay_records``, same backend).  The bench's ``gate_tune`` verdict
+    is printed as a measurement.  Then the registry's large handles
+    (``handles``: name -> GraphHandle) routed through the tuned policy: both
+    lie outside the calibrated support, so the thresholds decide there.
+    Appends one ``{"tune": ...}`` line."""
+    import torch
+
+    from repro_torch.benchmarks import tune_bench
+    from repro_torch.obs import CostLog, backend_name, set_cost_log
+    from repro_torch.tune import (TunedPolicy, calibrate, load_model,
+                                  replay_records)
+
+    path = Path(__file__).resolve().parent / "build" / "CALIBRATION_torch.json"
+    path.parent.mkdir(exist_ok=True)
+    _, cal_wall = timed(lambda: calibrate.run(device=device, out=str(path),
+                                              verbose=False))
+    model = load_model(str(path))
+    backend = backend_name(device)
+    check(model.meta.get("backend") == backend,
+          f"tune: calibration stamped {model.meta.get('backend')!r}")
+    log = CostLog()
+    prev = set_cost_log(log)
+    rows, routed, legs = [], 0, []
+    try:
+        for leg in tune_bench.FULL_LEGS:
+            before = launch_counts(wrappers)
+            (leg_rows, leg_routed), _ = timed(
+                lambda: tune_bench.race(model, [leg], device=device,
+                                        verbose=False))
+            moved = launches_since(wrappers, before)
+            row = leg_rows[0]
+            for pol in ("base", "tuned"):
+                kernel = KERNEL_OF.get(row[pol]["engine"])
+                check(torch.device(device).type != "cuda"
+                      or (kernel is not None and moved.get(kernel, 0) > 0),
+                      f"tune {leg}: {pol} chose {row[pol]['engine']}, "
+                      f"launched {moved}")
+            check(row["agrees_bitwise"],
+                  f"tune {leg}: tuned and threshold answers differ")
+            rows += leg_rows
+            routed += leg_routed
+            legs.append(dict(corpus=row["corpus"], n=row["n"], m=row["m"],
+                             base=row["base"], tuned=row["tuned"],
+                             ratio=row["ratio"],
+                             identical_choice=row["identical_choice"],
+                             launches=moved))
+    finally:
+        set_cost_log(prev)
+    check(routed >= 1, "tune: the model routed no leg")
+    gate = tune_bench._gate_tune(rows, smoke=False, model_routed=routed)
+    rep = replay_records([r.to_dict() for r in log.records], model,
+                         expect_backend=backend)
+    check(rep["pass"], f"tune: replay of the race's cost log failed "
+                       f"{rep['failures']} {rep['skipped']}")
+    policy = TunedPolicy(model, nprocs=1, device=device)
+    routes = {}
+    for name, h in handles.items():
+        ch = policy.choose(h, kind="single")
+        routes[name] = dict(engine=ch.engine, via=ch.via, n=h.n, m=h.m)
+    lines.append({"tune": dict(
+        calibration_s=cal_wall, fitted_points=model.coverage()["records"],
+        coverage=model.coverage(), legs=legs, model_routed=routed,
+        gate_tune_pass=gate["pass"], replay=dict(
+            replayed=rep["replayed"], engines=rep["engines"],
+            skipped=rep["skipped"]),
+        large_graphs=routes)})
+
+
 def serial_check(device) -> dict:
     """The paper's Alg. 1 on the device against bellman_csr, bitwise."""
     from repro_torch.core.csr import sparse_csr_graph
@@ -1296,19 +1328,11 @@ def main() -> int:
     from repro_torch.core import graph as G
     from repro_torch.core.delta_stepping import delta_profile
     from repro_torch.kernels import common
-    from repro_torch.kernels.bucket_relax.kernel import bucket_relax
-    from repro_torch.kernels.csr_relax.kernel import ell_relax
-    from repro_torch.kernels.frontier_relax.kernel import frontier_relax
-    from repro_torch.kernels.sssp_relax.kernel import (relax_matmul,
-                                                       relax_matvec,
-                                                       relax_matvec_frontier)
+    from repro_torch.kernels import wrappers as kernel_wrappers
 
     import min_plus_rate
 
-    wrappers = {"ell_relax": ell_relax, "frontier_relax": frontier_relax,
-                "bucket_relax": bucket_relax, "relax_matvec": relax_matvec,
-                "relax_matmul": relax_matmul,
-                "relax_matvec_frontier": relax_matvec_frontier}
+    wrappers = kernel_wrappers()
     device = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1388,7 +1412,28 @@ def main() -> int:
                   {e: walls["sparse", e] for e in SINGLE_ENGINES}, zipf_wall,
                   device, wrappers, lines)
         lines.append({"obs_phase_s": time.perf_counter() - t0})
-    except CheckFailed as e:
+        # the serving drivers, then self-tuning: a launch window each
+        windows = {}
+        for path, run in (
+                ("drivers", lambda: drivers_phase(device, wrappers, lines)),
+                ("tune", lambda: tune_phase(
+                    {name: registry.get(name)
+                     for name in ("sparse-4M", "hub-1M")},
+                    device, wrappers, lines))):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            run()
+            torch.cuda.synchronize()
+            windows[path] = {k: fn.launches for k, fn in wrappers.items()}
+            lines.append({f"{path}_phase_s": time.perf_counter() - t0})
+        check(windows["drivers"]["frontier_relax"] > 0,
+              "frontier_relax was not launched by the serving drivers")
+        for k in ("ell_relax", "frontier_relax", "bucket_relax"):
+            check(windows["tune"][k] > 0,
+                  f"{k} was not launched on the self-tuning path")
+    except (CheckFailed, SystemExit) as e:
         for line in lines:              # what ran before the failure
             print(json.dumps(line))
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1398,9 +1443,13 @@ def main() -> int:
         print(json.dumps(line))
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNELS[k][0],
-             replaces=KERNELS[k][1], launches=launches[k] + served[k],
+             replaces=KERNELS[k][1],
+             launches=(launches[k] + served[k] + windows["drivers"][k]
+                       + windows["tune"][k]),
              launches_by_path={"csr_dynamic_dense": launches[k],
-                               "serve": served[k]}, **kern[k])
+                               "serve": served[k],
+                               "drivers": windows["drivers"][k],
+                               "tune": windows["tune"][k]}, **kern[k])
         for k in KERNELS]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@
 
     python -m repro_torch.benchmarks.run_bench [--smoke | --full]
     python -m repro_torch.benchmarks.dynamic_bench [--smoke]
+    python -m repro_torch.benchmarks.serve_bench [--smoke] [--overload] [--obs]
+    python -m repro_torch.benchmarks.tune_bench [--smoke]
 
-Both take ``--device cuda|cpu`` (default cuda, which needs a GPU).
+All take ``--device cuda|cpu`` (default cuda, which needs a GPU).
 """

@@ -126,6 +126,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def refuse_sharded(devices: int, what: str) -> None:
+    """Raise ``NotImplementedError`` when ``what`` asks for ``devices`` > 1:
+    the sharded engines are not ported yet (ROADMAP A.11), and nothing
+    quietly runs at one device instead."""
+    if int(devices) > 1:
+        raise NotImplementedError(
+            f"{what} with {devices} devices needs the sharded engines, "
+            f"which are not ported yet (ROADMAP A.11); run it on one device")
+
+
 def _validate(engine, delta, target):
     """Eager checks, before any staging: unknown or unported engines, a bad
     Δ, and arguments an engine would silently ignore."""

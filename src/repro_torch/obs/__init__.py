@@ -27,7 +27,7 @@ from .metrics import (
     trace_count,
 )
 from .profile import (CostLog, CostRecord, NULL_COST_LOG, backend_info,
-                      get_cost_log, set_cost_log)
+                      backend_name, get_cost_log, set_cost_log)
 from .trace import NULL_TRACER, NullTracer, Span, Tracer, get_tracer, set_tracer
 
 __all__ = [
@@ -43,6 +43,7 @@ __all__ = [
     "mark_trace",
     "trace_count",
     "backend_info",
+    "backend_name",
     "CostLog",
     "CostRecord",
     "NULL_COST_LOG",

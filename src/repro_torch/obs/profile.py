@@ -31,6 +31,7 @@ __all__ = [
     "CostLog",
     "NULL_COST_LOG",
     "backend_info",
+    "backend_name",
     "get_cost_log",
     "set_cost_log",
 ]
@@ -65,20 +66,33 @@ def _cuda_name(index: int) -> str:
     return str(torch.cuda.get_device_name(index))
 
 
+def backend_name(device) -> str:
+    """The backend label of ``device`` (a ``torch.device`` or its name):
+    ``"gpu"`` for a CUDA device, ``"cpu"`` for the CPU.  Reads nothing off
+    the device."""
+    import torch
+
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return "gpu"
+    if kind == "cpu":
+        return "cpu"
+    raise ValueError(f"unsupported device type {kind!r}")
+
+
 def backend_info(device) -> tuple:
     """``(backend, device_kind)`` of ``device`` (a ``torch.device`` or its
     name): ``("gpu", "NVIDIA H100 80GB HBM3")`` for a CUDA device, ``("cpu",
     "cpu")`` for the CPU.  The card's name is read once per index."""
     import torch
 
+    backend = backend_name(device)
     dev = torch.device(device)
     if dev.type == "cuda":
         index = (dev.index if dev.index is not None
                  else torch.cuda.current_device())
-        return ("gpu", _cuda_name(index))
-    if dev.type == "cpu":
-        return ("cpu", "cpu")
-    raise ValueError(f"unsupported device type {dev.type!r}")
+        return (backend, _cuda_name(index))
+    return (backend, "cpu")
 
 
 @dataclasses.dataclass(frozen=True)

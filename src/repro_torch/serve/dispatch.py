@@ -50,6 +50,20 @@ DEFAULT_DELTA_THRESHOLD = 4096
 # paths plus api's one-shot single-source case).
 KINDS = ("single", "batch", "p2p")
 
+# the kernel twin of each single-device engine that has one: the same
+# dist, pred and counters through the port's CUDA kernel
+KERNEL_TWINS = {"frontier": "frontier_kernel",
+                "bellman_csr": "bellman_csr_kernel",
+                "delta_stepping": "delta_stepping_kernel"}
+
+
+def engine_for(engine: str, device) -> str:
+    """``engine`` as ``device`` runs it: its kernel twin on a CUDA device,
+    itself on the CPU or where it has no twin."""
+    if torch.device(device).type == "cuda":
+        return KERNEL_TWINS.get(engine, engine)
+    return engine
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineChoice:
@@ -110,18 +124,17 @@ class DispatchPolicy:
         self.shard_threshold = shard_threshold
         self.delta_threshold = delta_threshold
         self.axis = axis
-        cuda = self.device.type == "cuda"
-        self._static = self._KERNEL if cuda else self._SINGLE
-        self._delta = "delta_stepping_kernel" if cuda else "delta_stepping"
+        # static graphs run each engine as the device does (engine_for);
+        # dynamic graphs take _SINGLE on every device (the overlay sweeps
+        # are plain)
+        self._static = {kind: engine_for(e, self.device)
+                        for kind, e in self._SINGLE.items()}
+        self._delta = engine_for("delta_stepping", self.device)
 
     # JAX's engine per (family, kind): p2p stays on frontier single-device
-    # for the target= early exit.  _KERNEL is the CUDA table for static
-    # graphs; dynamic graphs take _SINGLE on every device (the overlay
-    # sweeps are plain).
+    # for the target= early exit.
     _SINGLE = {"single": "frontier", "batch": "multisource_csr",
                "p2p": "frontier"}
-    _KERNEL = {"single": "frontier_kernel", "batch": "multisource_csr",
-               "p2p": "frontier_kernel"}
     _SHARDED = {"single": "frontier_sharded",
                 "batch": "multisource_csr_sharded",
                 "p2p": "frontier_sharded"}

@@ -337,3 +337,39 @@ def test_cuda_serving_raises_without_a_gpu(monkeypatch):
             make()
     with pytest.raises(RuntimeError, match="CUDA"):
         shortest_paths(TC.sparse_csr_graph(20), 0, engine="auto")
+
+
+@pytest.mark.parametrize("engine,kernel", [
+    ("delta_stepping_kernel", bucket_relax),
+    ("bellman_csr_kernel", ell_relax)])
+def test_tuned_query_on_the_card_launches_its_kernel_twin(cuda, engine,
+                                                          kernel):
+    """A card-stamped model in which ``engine`` is cheapest: the tuned
+    policy routes ``engine="auto"`` to that twin (with the measured Δ for
+    the Δ engine), its kernel launches, and the answer is the CPU serial
+    one."""
+    from repro_torch.serve.dispatch import policy_override
+    from repro_torch.tune import TunedPolicy, fit_model
+
+    cost = {"frontier_kernel": 1.0 / 100, "bellman_csr_kernel": 1.0 / 50,
+            "delta_stepping_kernel": 1.0 / 500}
+    cost[engine] = 1.0 / 5000
+    recs = []
+    for n in (256, 512, 1024, 2048):
+        for e, c in cost.items():
+            recs.append({"engine": e, "graph": "", "n": n, "m": 3 * n,
+                         "batch": 1, "nprocs": 1, "sweeps": 3,
+                         "delta": 8.0 if "delta" in e else 0.0,
+                         "edges_relaxed": 3 * n, "wall_ms": n * c,
+                         "converged": True, "hops": 10.0, "skew": 2.0,
+                         "backend": "gpu", "device_kind": "card"})
+    policy = TunedPolicy(fit_model(recs, meta={"backend": "gpu"}),
+                         device=cuda)
+    cg = TC.random_csr_graph(1024, 3072, seed=7)
+    before = kernel.launches
+    with policy_override(policy):
+        res = shortest_paths(cg, 0, engine="auto", device=cuda)
+    assert res.engine == engine and policy.model_routed == 1
+    assert kernel.launches > before
+    ref = shortest_paths(cg, 0, engine="serial", device="cpu")
+    assert res.dist.tobytes() == ref.dist.tobytes()
