@@ -47,7 +47,22 @@ the kernels' operation bounds use them) and then:
    with 8 sources, the batched fixpoint through the ``relax_matmul``
    kernel, and one frontier-masked sweep; the serial / ``bellman_kernel``
    wall ratio is the paper's headline comparison on this card;
-6. the serving path (:func:`serve_phase`), with the launch counts set to 0
+6. the sharded engines (:func:`sharded_engines`), in their own launch
+   window, on an NCCL group of one rank: on sparse-4M
+   ``bellman_csr_sharded`` and ``frontier_sharded`` (and a ``target=``
+   query) bitwise equal to ``frontier_kernel``, ``multisource_csr_sharded``
+   with 16 sources row by row to per-source solves; ``dijkstra_sharded``
+   with each MINLOC collective on dense-2000 and ``packed`` on
+   paper-sparse-40000, ``bellman_sharded`` and the sharded ``multisource``
+   there, against ``bellman_kernel``, ``serial`` and ``multisource``; one
+   ``{"sharded": ...}`` line a run (wall, sweeps, edges, collectives, the
+   single-device wall); ``ell_relax`` and ``frontier_relax`` must launch
+   in the window.  Then the kernels' two sharded modes
+   (:func:`kernel_mode_phase`: row base and explicit labels) bitwise
+   against their plain versions on block 2 of a 4-way partition of
+   sparse-4M, timed, one ``{"kernel_mode": ...}`` line each and a
+   ``{"kernel_modes": ...}`` summary before the kernels line;
+7. the serving path (:func:`serve_phase`), with the launch counts set to 0
    just before it and read just after: a ``GraphRegistry`` on the card
    holding sparse-4M, hub-1M and a ``DynamicGraph`` of sparse-4M, each
    with 8 ALT landmarks, one ``MicroBatchScheduler`` (16 sources a batch,
@@ -59,18 +74,18 @@ the kernels' operation bounds use them) and then:
    ``frontier_kernel`` solve of its (graph, version, source), one source
    a graph against scipy, and ``engine="auto"`` launching its routed
    kernel; one ``{"serve": ...}`` line a trace;
-7. observability (:func:`obs_phase`): the CSR engines on sparse-4M and the
+8. observability (:func:`obs_phase`): the CSR engines on sparse-4M and the
    Zipf replay again under a ``Tracer`` and a ``CostLog``, their files
    through the port's ``validate`` (the CLI for the replay's), every cost
    record stamped ``"gpu"`` and the card's name, and traced against
    untraced walls (printed, not gated);
-8. the serving drivers (:func:`drivers_phase`), in their own launch
+9. the serving drivers (:func:`drivers_phase`), in their own launch
    window: ``repro_torch.launch.sssp_serve`` at ``--smoke`` (checked
    against ``serial``), at its defaults (checked against fresh
    ``frontier_kernel`` rows, each held to scipy) and ``--chaos --smoke``,
    and ``repro_torch.launch.sssp_dynamic --smoke``, all ``--device
    cuda``; one ``{"driver": ...}`` line a run;
-9. self-tuning (:func:`tune_phase`), in its own launch window: a
+10. self-tuning (:func:`tune_phase`), in its own launch window: a
    calibration over the full grid, the fitted model, and the threshold
    policy raced against ``TunedPolicy`` on tune_bench's full legs (answers
    bitwise equal, the model routing, each chosen engine's kernel launched,
@@ -82,7 +97,7 @@ It prints the card, the measured rates, one JSON line per CSR-kernel
 shape, per engine run, per dynamic batch size, per serve trace, per obs
 pass, per driver run and per graph's (and the target query's and the
 dynamic phase's) kernel launches, one ``{"kernels": ...}`` line
-(``launches`` summed over the four counted windows, ``launches_by_path``
+(``launches`` summed over the five counted windows, ``launches_by_path``
 split), and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line; so does a machine
 without a CUDA GPU.
@@ -115,6 +130,11 @@ SERIAL_N = 2048
 DENSE_SPARSE_N = 40_000      # the paper's Table II, largest graph
 DENSE_DENSE_N = 2000         # the paper's Table I, largest graph
 SOURCES = 8
+#: the sharded phase: multisource_csr_sharded's batch on sparse-4M, and the
+#: P of the partition whose block 2 holds the two kernel modes
+SHARDED_SOURCES = 16
+MODE_NPROCS = 4
+MODE_BLOCK = 2
 KERNEL_REPS = 20
 PLAIN_REPS = 5
 #: device clock cycles of the spin before each timed call (about 1 ms on an
@@ -680,10 +700,13 @@ def launches_since(wrappers: dict, before: dict) -> dict:
             if fn.launches > before[k]}
 
 
-def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
+def engine_phase(graphs: dict, device, walls: dict, wrappers: dict,
+                 refs: dict) -> list:
     """The main path: every slice engine through shortest_paths.  Records
-    each single-source wall in ``walls``, and the kernels' launches on each
-    graph (``wrappers`` maps a kernel to its wrapper)."""
+    each single-source wall in ``walls``, the kernels' launches on each
+    graph (``wrappers`` maps a kernel to its wrapper), and in ``refs`` the
+    ``frontier_kernel`` result and the target query's vertex on sparse-4M
+    (the sharded phase's references)."""
     import numpy as np
 
     lines = []
@@ -734,6 +757,7 @@ def engine_phase(graphs: dict, device, walls: dict, wrappers: dict) -> list:
         order = np.argsort(np.where(np.isfinite(base.dist), base.dist,
                                     np.inf), kind="stable")
         target = int(order[int(np.isfinite(base.dist).sum()) // 2])
+        refs["sparse"], refs["target"] = res["frontier_kernel"], target
         before = launch_counts(wrappers)
         tk, wall = run_engine(cg, 0, "frontier_kernel", device, target=target)
         lines.append(dict(graph=name, query="target", launches=launches_since(
@@ -834,12 +858,13 @@ def dynamic_phase(name: str, cg, device, wrappers: dict) -> list:
 
 
 def dense_engine_phase(dense: dict, device, walls: dict, rng,
-                       wrappers: dict) -> list:
+                       wrappers: dict, refs: dict) -> list:
     """The paper's dense path on each graph through shortest_paths: serial,
     bellman, bellman_kernel and bellman_csr from source 0, multisource
     with 8 sources, the batched fixpoint through the relax_matmul kernel
-    and one frontier-masked sweep.  Records each single-source wall in
-    ``walls``.  The serial / bellman_kernel ratio is given twice: over the
+    and one frontier-masked sweep.  Records each single-source wall (and
+    multisource's) in ``walls``, and each engine's result in ``refs[name]``
+    (the sharded phase's references).  The serial / bellman_kernel ratio is given twice: over the
     engine walls (each stages the matrix anew) and over the solves alone
     on a matrix already on the card."""
     import numpy as np
@@ -910,6 +935,8 @@ def dense_engine_phase(dense: dict, device, walls: dict, rng,
 
         sources = np.arange(SOURCES) * (g.n // SOURCES)
         ms, wall = run_engine(g, sources, "multisource", device)
+        walls[name, "multisource"] = wall
+        refs[name] = dict(res, multisource=ms)
         check(ms.dist[0].tobytes() == base.dist.tobytes(),
               f"{name} multisource row 0 differs from bellman")
         rel = check_oracle(f"{name} multisource", ms.dist,
@@ -1188,6 +1215,226 @@ def obs_phase(cg, registry, zipf, walls: dict, zipf_wall: float, device,
 #: 10,000, 2 graphs, 3 scenarios, 400 queries at 500/s; checked against
 #: fresh frontier_kernel rows, each held to scipy), the chaos smoke, and
 #: sssp_dynamic's smoke (checked against serial)
+def sharded_engines(graphs: dict, dense: dict, refs: dict, walls: dict,
+                    device, wrappers: dict, lines: list) -> None:
+    """Every sharded engine through shortest_paths on an NCCL group of one
+    rank on the card (NCCL, never gloo: a failure to open it fails the
+    run), each held to its single-device reference from the earlier
+    phases: on sparse-4M ``bellman_csr_sharded``, ``frontier_sharded``
+    (dist, pred; frontier_sharded's sweeps and edges too) and a
+    ``target=`` query against ``frontier_kernel``, and
+    ``multisource_csr_sharded`` with 16 sources row by row against
+    per-source ``frontier_kernel`` solves; ``dijkstra_sharded`` with each
+    MINLOC on dense-2000 and with ``packed`` on paper-sparse-40000 against
+    ``bellman_kernel``'s dist and ``serial``'s pred; ``bellman_sharded``
+    and the sharded ``multisource`` (8 sources) on paper-sparse-40000
+    against ``bellman_kernel`` and ``multisource``.  One ``{"sharded":
+    ...}`` line an engine run: wall, sweeps, edges, the collectives of the
+    solve, and the wall of its single-device twin from the earlier phases
+    (``bellman_csr_kernel``, ``frontier_kernel``, ``multisource_csr`` at 16
+    sources, ``serial`` for Alg. 2, ``bellman_kernel``, ``multisource``)
+    beside it.  The reference
+    solves made here take their kernel launches back out of the counts:
+    the window counts the sharded engines' launches only."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core._dist import open_group
+    from repro_torch.core.api import shortest_paths
+
+    def reference(engine, g, src):
+        before = launch_counts(wrappers)
+        out = run_engine(g, src, engine, device)
+        for k, fn in wrappers.items():
+            fn.launches = before[k]
+        return out
+
+    sparse = graphs["sparse"]
+    t0 = time.perf_counter()
+    sparse.partitioned(1)                  # host view, memoized on the graph
+    lines.append(dict(graph="sparse", partition_p1_s=time.perf_counter() - t0,
+                      partition_p1_bytes=sparse.partitioned(1).nbytes))
+    with tempfile.TemporaryDirectory() as store, open_group(
+            0, 1, backend="nccl", device=device, store_dir=store) as group:
+
+        def run(graph, g, src, engine, single, **kw):
+            c0 = group.collectives
+            res, wall = timed(lambda: shortest_paths(
+                g, src, engine=engine, device=device, group=group, **kw))
+            lines.append(dict(
+                sharded=engine, graph=graph, procs=group.size,
+                backend=group.backend, wall_s=wall, sweeps=res.sweeps,
+                edges_relaxed=res.edges_relaxed, converged=res.converged,
+                collectives=group.collectives - c0, single_device=single,
+                single_device_wall_s=walls.get((graph, single)), **kw))
+            return res
+
+        fk = refs["sparse"]
+        for engine, single in (("bellman_csr_sharded", "bellman_csr_kernel"),
+                               ("frontier_sharded", "frontier_kernel")):
+            r = run("sparse", sparse, 0, engine, single)
+            check(r.dist.tobytes() == fk.dist.tobytes()
+                  and np.array_equal(r.pred, fk.pred) and r.converged,
+                  f"{engine}: dist / pred differ from frontier_kernel")
+        check((r.sweeps, r.edges_relaxed) == (fk.sweeps, fk.edges_relaxed),
+              "frontier_sharded: sweeps / edges differ from frontier_kernel")
+        r = run("sparse", sparse, 0, "frontier_sharded", "frontier_kernel",
+                target=refs["target"])
+        check(r.dist.tobytes() == fk.dist.tobytes(),
+              "frontier_sharded target= query differs from the full solve")
+        sources = np.arange(SHARDED_SOURCES) * (sparse.n // SHARDED_SOURCES)
+        _, walls["sparse", "multisource_csr"] = reference(
+            "multisource_csr", sparse, sources)
+        r = run("sparse", sparse, sources, "multisource_csr_sharded",
+                "multisource_csr")
+        check(r.converged, "multisource_csr_sharded: not converged")
+        for i, src in enumerate(sources):
+            one, _ = reference("frontier_kernel", sparse, int(src))
+            check(r.dist[i].tobytes() == one.dist.tobytes(),
+                  f"multisource_csr_sharded row {i} differs from "
+                  f"frontier_kernel from {src}")
+
+        for name, minlocs in ((f"dense-{DENSE_DENSE_N}",
+                               ("allgather", "pmin", "packed")),
+                              (f"paper-sparse-{DENSE_SPARSE_N}", ("packed",))):
+            ref = refs[name]
+            for minloc in minlocs:
+                r = run(name, dense[name], 0, "dijkstra_sharded", "serial",
+                        minloc=minloc)
+                check(r.dist.tobytes() == ref["bellman_kernel"].dist.tobytes()
+                      and np.array_equal(r.pred, ref["serial"].pred),
+                      f"{name} dijkstra_sharded ({minloc}): dist differs "
+                      f"from bellman_kernel or pred from serial")
+        name = f"paper-sparse-{DENSE_SPARSE_N}"
+        ref = refs[name]
+        r = run(name, dense[name], 0, "bellman_sharded", "bellman_kernel")
+        b = ref["bellman_kernel"]
+        check(r.dist.tobytes() == b.dist.tobytes()
+              and np.array_equal(r.pred, b.pred) and r.sweeps == b.sweeps,
+              f"{name} bellman_sharded differs from bellman_kernel")
+        ms = ref["multisource"]
+        r = run(name, dense[name], ms.sources, "multisource", "multisource")
+        check(r.dist.tobytes() == ms.dist.tobytes() and r.sweeps == ms.sweeps,
+              f"{name} sharded multisource differs from multisource")
+
+
+def kernel_mode_phase(cg, device, rng, launches: dict) -> tuple[dict, list]:
+    """The two kernel modes of the sharded engines against their plain
+    versions, bitwise, on block MODE_BLOCK of a MODE_NPROCS-way partition of
+    ``cg`` (one process, no collective, so the block offsets are exercised
+    though the group on the card has one rank), then timed as the other
+    kernels are: ``ell_relax`` with a row base over the block's incoming
+    CSR (padding arcs included) from a mixed label vector of n_pad, and
+    ``frontier_relax`` with explicit labels pushing a 10% random global
+    frontier (seven sentinel ids ``n_pad``) into the block.  Yardstick:
+    one ``scatter_reduce`` over the same arcs.  ``launches`` are each
+    kernel's launches in the sharded window.  Returns an entry a mode for
+    the summary and one line a mode."""
+    import torch
+
+    from repro_torch.core.sharded_csr import partition_operands
+    from repro_torch.kernels.common import lane_group
+    from repro_torch.kernels.csr_relax.kernel import ell_relax
+    from repro_torch.kernels.csr_relax.ref import ell_relax_csr_ref, row_ids
+    from repro_torch.kernels.frontier_relax.kernel import frontier_relax
+    from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
+
+    t0 = time.perf_counter()
+    parts = cg.partitioned(MODE_NPROCS)
+    part_s = time.perf_counter() - t0
+    ops = partition_operands(parts, MODE_BLOCK, device=device)
+    loc_n, n_pad, m = parts.loc_n, parts.n_pad, parts.nnz_max
+    base = MODE_BLOCK * loc_n
+    shape = (f"block {MODE_BLOCK} of sparse-4M / {MODE_NPROCS}: "
+             f"n_pad={n_pad} loc_n={loc_n} nnz_max={m}")
+    out, lines = {}, []
+
+    # ell_relax, row base
+    dist = mixed_dist(n_pad, rng, device)
+    csr = (ops["in_indptr"], ops["in_src"], ops["in_w"])
+    got = ell_relax(dist, *csr, row_base=base)
+    plain = ell_relax_csr_ref(dist, *csr, row_base=base)
+    check(bitwise(got, plain), "ell_relax (row base) differs from its plain "
+                               "version")
+    own = dist[base:base + loc_n]
+    src, dst = csr[1].long(), row_ids(csr[0], m)
+    lib = own.scatter_reduce(0, dst, dist[src] + csr[2], "amin")
+    check(bitwise(lib, plain), "scatter_reduce yardstick differs (row base)")
+    b, by = bound_ms(m * 8 + (loc_n + 1) * 4 + loc_n * 8, m + loc_n)
+    out["ell_relax"] = dict(
+        mode="row_base", shape=shape, bitwise_equal_plain=True,
+        max_abs_err=max_abs_err(got, plain),
+        ms=time_ms(lambda: ell_relax(dist, *csr, row_base=base),
+                   KERNEL_REPS),
+        plain_ms=time_ms(lambda: ell_relax_csr_ref(dist, *csr, row_base=base),
+                         PLAIN_REPS),
+        library_ms=time_ms(lambda: own.scatter_reduce(
+            0, dst, dist[src] + csr[2], "amin"), PLAIN_REPS),
+        bound_ms=b, bound_by=by, group=lane_group(loc_n, m),
+        launches=launches["ell_relax"])
+
+    # frontier_relax, explicit labels
+    on = torch.tensor(rng.random(n_pad) < 0.1, device=device)
+    fids = torch.cat([torch.nonzero(on).flatten(),
+                      torch.full((7,), n_pad, device=device)])
+    flab = torch.tensor(rng.uniform(0.0, 2000.0, fids.numel()).astype(
+        "float32"), device=device)
+    blk0 = mixed_dist(loc_n, rng, device)
+    push = (fids, ops["out_indptr"], ops["out_dst"], ops["out_w"])
+    blk, fell = blk0.clone(), torch.zeros(loc_n, dtype=torch.bool,
+                                          device=device)
+    frontier_relax(blk, *push, fell, flabels=flab)
+    ref, ref_fell = blk0.clone(), torch.zeros_like(fell)
+    frontier_relax_ref(ref, *push, ref_fell, flabels=flab)
+    check(bitwise(blk, ref) and torch.equal(fell, ref_fell),
+          "frontier_relax (explicit labels) differs from its plain version")
+    check(torch.equal(fell, blk < blk0),
+          "frontier_relax's mask is not new < snapshot (explicit labels)")
+    ip = ops["out_indptr"].long()
+    live = fids < n_pad + 1
+    rows, rlab = fids[live], flab[live]
+    starts, degs = ip[rows], ip[rows + 1] - ip[rows]
+    E = int(degs.sum())
+    first = torch.repeat_interleave(starts - (torch.cumsum(degs, 0) - degs),
+                                    degs, output_size=E)
+    pos = first + torch.arange(E, device=device)
+    alab = torch.repeat_interleave(rlab, degs, output_size=E)
+    fdst, fw = ops["out_dst"][pos].long(), ops["out_w"][pos]
+    lib = blk0.clone()
+    lib.scatter_reduce_(0, fdst, alab + fw, "amin")
+    check(bitwise(lib, ref), "scatter_reduce_ yardstick differs (explicit "
+                             "labels)")
+    F, T = fids.numel(), int(torch.unique(fdst).numel())
+    W = int(fell.sum())
+    b, by = bound_ms(F * 20 + E * 8 + T * 4 + W * 5, E)
+
+    def reset():
+        blk.copy_(blk0)
+        fell.zero_()
+
+    def lib_reset():
+        lib.copy_(blk0)
+
+    out["frontier_relax"] = dict(
+        mode="explicit_labels",
+        shape=f"{shape} F={F} E={E} targets={T} fell={W}",
+        bitwise_equal_plain=True, max_abs_err=max_abs_err(blk, ref),
+        ms=time_ms(lambda: frontier_relax(blk, *push, fell, flabels=flab),
+                   KERNEL_REPS, reset),
+        plain_ms=time_ms(lambda: frontier_relax_ref(blk, *push, fell,
+                                                    flabels=flab),
+                         PLAIN_REPS, reset),
+        library_ms=time_ms(lambda: lib.scatter_reduce_(0, fdst, alab + fw,
+                                                       "amin"),
+                           PLAIN_REPS, lib_reset),
+        bound_ms=b, bound_by=by, group=lane_group(n_pad + 1, m),
+        launches=launches["frontier_relax"])
+    for k, line in out.items():
+        lines.append(dict(kernel_mode=k, partition_s=part_s, **line))
+    return out, lines
+
+
 DRIVER_RUNS = (
     ("sssp_serve", ("--smoke",)),
     ("sssp_serve", ("--verify", "--verify-engine", "frontier_kernel")),
@@ -1375,14 +1622,16 @@ def main() -> int:
         torch.cuda.synchronize()
         for fn in wrappers.values():
             fn.launches = 0
-        walls = {}
-        lines += pull_lines + engine_phase(graphs, device, walls, wrappers)
+        walls, refs = {}, {}
+        lines += pull_lines + engine_phase(graphs, device, walls, wrappers,
+                                           refs)
         t0 = time.perf_counter()
         lines += dynamic_phase("sparse-4M", graphs["sparse"], device,
                                wrappers)
         lines.append({"dynamic_phase_s": time.perf_counter() - t0})
         t0 = time.perf_counter()
-        lines += dense_engine_phase(dense, device, walls, rng, wrappers)
+        lines += dense_engine_phase(dense, device, walls, rng, wrappers,
+                                    refs)
         dense_s["dense_engine_phase_s"] = time.perf_counter() - t0
         lines.append(dense_s)
         torch.cuda.synchronize()
@@ -1393,7 +1642,23 @@ def main() -> int:
         profiled = {name: (cg, tuple(TWINS)) for name, cg in graphs.items()}
         profiled[big] = (dense[big], ("bellman_kernel",))
         lines += profile_phase(profiled, walls, device)
-        del dense
+        # the sharded engines on an NCCL group of one: their own window
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        sharded_engines(graphs, dense, refs, walls, device, wrappers,
+                        lines)
+        torch.cuda.synchronize()
+        sharded = {k: fn.launches for k, fn in wrappers.items()}
+        for k in ("ell_relax", "frontier_relax"):
+            check(sharded[k] > 0,
+                  f"{k} was not launched by the sharded engines")
+        modes, mode_lines = kernel_mode_phase(graphs["sparse"], device, rng,
+                                              sharded)
+        lines += mode_lines
+        lines.append({"sharded_phase_s": time.perf_counter() - t0})
+        del dense, refs
         # the serving path: its own launch window
         t0 = time.perf_counter()
         torch.cuda.synchronize()
@@ -1441,12 +1706,14 @@ def main() -> int:
 
     for line in lines:
         print(json.dumps(line))
+    print(json.dumps({"kernel_modes": modes}))
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNELS[k][0],
              replaces=KERNELS[k][1],
-             launches=(launches[k] + served[k] + windows["drivers"][k]
-                       + windows["tune"][k]),
+             launches=(launches[k] + sharded[k] + served[k]
+                       + windows["drivers"][k] + windows["tune"][k]),
              launches_by_path={"csr_dynamic_dense": launches[k],
+                               "sharded": sharded[k],
                                "serve": served[k],
                                "drivers": windows["drivers"][k],
                                "tune": windows["tune"][k]}, **kern[k])

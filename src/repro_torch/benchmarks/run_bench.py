@@ -7,7 +7,7 @@ package's ``BENCH_sssp.json``):
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run_bench \
         [--smoke | --full] [--device cuda|cpu] [--out PATH] [--repeats N] \
-        [--cost-out PATH]
+        [--cost-out PATH] [--devices P]
 
 Every CSR-family record carries the engine's ``edges_relaxed``; every
 ``*_kernel`` record the launches of its CUDA kernel in that solve
@@ -23,7 +23,17 @@ Gates (the JAX bench's, with the same rules and the same smoke honesty):
   they have, and the rule says so);
 * ``gate_delta``: ``delta_stepping`` takes strictly fewer bucket phases
   than frontier sweeps AND less wall-clock on every road/hub point with
-  n >= 10000 (smoke runs gate the phase count only).
+  n >= 10000 (smoke runs gate the phase count only);
+* ``gate_sharded`` (with ``--devices P``): ``frontier_sharded`` at P relaxes
+  no more edges than the single-device ``frontier`` on every shared sparse
+  point (a counter gate, not a wall gate).
+
+``--devices P`` adds the sharded leg: ``bellman_csr_sharded`` and
+``frontier_sharded`` on the sparse points, run by P ranks spawned through
+core/_dist.spawn (gloo on the CPU; NCCL with one GPU a rank, so P = 1 on
+one card), each record tagged ``procs`` and held bitwise against the
+point's first engine.  Without it the leg, and ``gate_sharded``, are
+absent (JAX's ``--devices 1`` drops the leg; here P = 1 runs it).
 
 ``--smoke`` caps the corpora (n <= 1000); ``--full`` extends the sparse
 corpus to the paper's 40,000 vertices.  The per-engine caps are JAX's for
@@ -35,8 +45,6 @@ the GPU it is lifted, on the CPU it stays.
 observability shim, repro_torch/obs), each stamped with the device, and
 exits non-zero if they are not schema-valid.
 
-Not ported yet, as ``meta["not_ported"]`` records: the sharded leg
-(``--devices``, ``gate_sharded``) comes with the sharded slice.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from repro_torch.benchmarks.common import (REPO, capture_costs, device_meta,
                                            time_engine)
 from repro_torch.core import csr as C
 from repro_torch.core import graph as G
+from repro_torch.core._dist import BACKEND_OF, spawn
 from repro_torch.core.api import resolve_device, shortest_paths
 
 DEFAULT_OUT = str(REPO / "BENCH_torch_sssp.json")
@@ -68,6 +77,8 @@ ENGINE_CAPS = {
     "delta_stepping": None,
     "delta_stepping_kernel": 1000,
     "multisource_csr": None,
+    "bellman_csr_sharded": None,
+    "frontier_sharded": None,
 }
 #: each kernel engine's CUDA kernel, by wrapper name
 KERNEL_OF = {
@@ -76,6 +87,9 @@ KERNEL_OF = {
     "frontier_kernel": "frontier_relax",
     "delta_stepping_kernel": "bucket_relax",
 }
+#: the sharded leg's engines and the kernel each relaxes its block with
+SHARDED_KERNEL_OF = {"bellman_csr_sharded": "ell_relax",
+                     "frontier_sharded": "frontier_relax"}
 
 DENSE_ENGINES = ("serial", "bellman", "bellman_kernel",
                  "bellman_csr", "frontier")
@@ -88,11 +102,6 @@ DELTA_NS = (10000, 20000)         # gate-sized points (>= gate_delta min_n)
 DELTA_NS_SMOKE = (1000,)
 
 N_SOURCES = 4                     # batch width for multisource_csr
-
-NOT_PORTED = {
-    "gate_sharded": "the sharded engines come with the sharded slice",
-    "--devices": "the sharded engines come with the sharded slice",
-}
 
 
 def engine_caps(smoke: bool, device) -> dict:
@@ -118,13 +127,13 @@ def kernel_wrappers() -> dict:
             "frontier_relax": frontier_relax, "bucket_relax": bucket_relax}
 
 
-def _solve(arg, src, engine, device, record: dict):
+def _solve(arg, src, engine, device, record: dict, group=None):
     """One verified solve; for a kernel engine, record its kernel's launches
     in this solve and exit if none reached the GPU."""
-    kernel = KERNEL_OF.get(engine)
+    kernel = KERNEL_OF.get(engine) or SHARDED_KERNEL_OF.get(engine)
     wrapper = kernel_wrappers()[kernel] if kernel else None
     before = wrapper.launches if wrapper else 0
-    res = shortest_paths(arg, src, engine=engine, device=device)
+    res = shortest_paths(arg, src, engine=engine, device=device, group=group)
     if wrapper is not None:
         launches = wrapper.launches - before
         record.update(kernel=kernel, kernel_launches=launches)
@@ -135,8 +144,9 @@ def _solve(arg, src, engine, device, record: dict):
 
 
 def _bench_point(corpus: str, n: int, m: int, engines, caps, repeats,
-                 device) -> list:
-    """Run every applicable engine on one corpus point; returns records."""
+                 device) -> tuple:
+    """Run every applicable engine on one corpus point; returns the records
+    and the first engine's distances (the point's anchor)."""
     cg = C.random_csr_graph(n, m, seed=n + m)
     g = cg.to_dense() if n <= 2000 else None      # dense engines' input
     srcs = np.linspace(0, n - 1, N_SOURCES).astype(np.int32)
@@ -167,6 +177,64 @@ def _bench_point(corpus: str, n: int, m: int, engines, caps, repeats,
         print(f"  {corpus} n={n:6d} {engine:22s} "
               f"{t / rec['sources']:9.5f}s/src sweeps={res.sweeps} "
               f"edges={res.edges_relaxed}", flush=True)
+    return records, anchor
+
+
+def _sharded_leg(group, points, caps, repeats, costs: bool):
+    """One rank of the sharded leg: every SHARDED_KERNEL_OF engine on each
+    sparse (n, m) point within its cap.  Returns the records (each with
+    the solve's ``dist``, for the parent's bitwise check) and, with
+    ``costs``, the cost records the facade emitted."""
+    from repro_torch.obs import CostLog, set_cost_log
+
+    log = CostLog() if costs else None
+    prev = set_cost_log(log) if costs else None
+    records = []
+    try:
+        for n, m in points:
+            cg = C.random_csr_graph(n, m, seed=n + m)
+            for engine in SHARDED_KERNEL_OF:
+                cap = caps.get(engine)
+                if cap is not None and n > cap:
+                    continue
+                rec = {"corpus": "sparse", "n": n, "m": m, "nnz": cg.nnz,
+                       "engine": engine, "procs": group.size}
+                res = _solve(cg, 0, engine, group.device, rec, group)
+                t = time_engine(
+                    lambda: shortest_paths(cg, 0, engine=engine,
+                                           device=group.device, group=group),
+                    repeats=repeats, device=group.device)
+                rec.update(time_s=t, sweeps=res.sweeps,
+                           edges_relaxed=res.edges_relaxed, sources=1,
+                           dist=res.dist)
+                records.append(rec)
+    finally:
+        if costs:
+            set_cost_log(prev)
+    return records, (log.records if costs else [])
+
+
+def _bench_sharded(points, caps, repeats, devices: int, device, anchors,
+                   cost_log) -> list:
+    """The sharded leg on ``devices`` spawned ranks; rank 0's records, each
+    held bitwise against its point's anchor, its cost records appended to
+    ``cost_log``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as store:
+        records, costs = spawn(
+            _sharded_leg, devices, backend=BACKEND_OF[device.type],
+            store_dir=store,
+            args=(points, caps, repeats, cost_log is not None))[0]
+    if cost_log is not None:
+        cost_log.records.extend(costs)
+    for rec in records:
+        dist = rec.pop("dist")
+        rec["agrees_bitwise"] = dist.tobytes() == anchors[rec["n"]].tobytes()
+        tag = f"{rec['engine']}@P{devices}"
+        print(f"  sparse n={rec['n']:6d} {tag:22s} "
+              f"{rec['time_s']:9.5f}s/src sweeps={rec['sweeps']} "
+              f"edges={rec['edges_relaxed']}", flush=True)
     return records
 
 
@@ -282,14 +350,54 @@ def _gate_delta(results, min_n: int = 10000):
     return {"rule": rule, "points": pts, "pass": ok}
 
 
+def _gate_sharded(results):
+    """frontier_sharded must relax NO MORE edges than the single-device
+    frontier engine on every sparse point where both ran: each arc has one
+    owner, so the SUM of the owners' counters equals the single-device
+    counter, and any excess means the exchange re-relaxes arcs.  None when
+    no sharded leg ran."""
+    by_point = {}
+    for r in results:
+        if r["corpus"] == "sparse" and r["engine"] in ("frontier",
+                                                       "frontier_sharded"):
+            by_point.setdefault(r["n"], {})[r["engine"]] = r
+    pts = []
+    for n in sorted(by_point):
+        pair = by_point[n]
+        if "frontier" not in pair or "frontier_sharded" not in pair:
+            continue
+        fe = pair["frontier"]["edges_relaxed"]
+        se = pair["frontier_sharded"]["edges_relaxed"]
+        pts.append({
+            "n": n, "m": pair["frontier_sharded"]["m"],
+            "procs": pair["frontier_sharded"]["procs"],
+            "frontier_sharded_edges": se, "frontier_edges": fe,
+            "no_more": se <= fe,
+        })
+    if not pts:
+        return None
+    procs = pts[0]["procs"]
+    return {
+        "rule": (f"frontier_sharded at P={procs} relaxes no more edges than "
+                 "single-device frontier on every shared sparse point "
+                 "(same work, partitioned)"),
+        "points": pts,
+        "pass": all(p["no_more"] for p in pts),
+    }
+
+
 def run(smoke: bool = False, full: bool = False, repeats: int = 3,
-        out: str = DEFAULT_OUT, device="cuda", cost_out=None) -> str:
-    """Run the bench on ``device``, write ``out`` (and with ``cost_out`` the
-    cost records), then exit non-zero on a bitwise disagreement, a failing
-    gate or invalid cost records (after writing)."""
+        out: str = DEFAULT_OUT, device="cuda", cost_out=None,
+        devices: int | None = None) -> str:
+    """Run the bench on ``device`` (with ``devices``, the sharded leg on
+    that many ranks too), write ``out`` (and with ``cost_out`` the cost
+    records), then exit non-zero on a bitwise disagreement, a failing gate
+    or invalid cost records (after writing)."""
     dev = resolve_device(device)
-    with capture_costs(cost_out):
-        doc = _measure(smoke, full, repeats, dev)
+    if devices is not None and devices < 1:
+        raise SystemExit(f"--devices {devices}: at least one rank")
+    with capture_costs(cost_out) as log:
+        doc = _measure(smoke, full, repeats, dev, devices, log)
     with open(out, "w") as f:
         json.dump(doc, f, indent=1)
         f.write("\n")
@@ -303,7 +411,8 @@ def run(smoke: bool = False, full: bool = False, repeats: int = 3,
     return out
 
 
-def _measure(smoke: bool, full: bool, repeats: int, dev) -> dict:
+def _measure(smoke: bool, full: bool, repeats: int, dev, devices,
+             cost_log) -> dict:
     caps = engine_caps(smoke, dev)
     dense_cap = 100 if smoke else 2000
     sparse_cap = 1000 if smoke else (40000 if full else 20000)
@@ -311,27 +420,34 @@ def _measure(smoke: bool, full: bool, repeats: int, dev) -> dict:
     for n, m in G.PAPER_DENSE:
         if n <= dense_cap:
             results += _bench_point("dense", n, m, DENSE_ENGINES, caps,
-                                    repeats, dev)
-    for n, m in G.PAPER_SPARSE:
-        if n <= sparse_cap:
-            results += _bench_point("sparse", n, m, SPARSE_ENGINES, caps,
-                                    repeats, dev)
+                                    repeats, dev)[0]
+    sparse = [(n, m) for n, m in G.PAPER_SPARSE if n <= sparse_cap]
+    anchors = {}
+    for n, m in sparse:
+        recs, anchors[n] = _bench_point("sparse", n, m, SPARSE_ENGINES, caps,
+                                        repeats, dev)
+        results += recs
+    if devices is not None:
+        results += _bench_sharded(sparse, caps, repeats, devices, dev,
+                                  anchors, cost_log)
     for corpus in ("road", "hub"):
         for n in (DELTA_NS_SMOKE if smoke else DELTA_NS):
             results += _bench_delta_point(corpus, n, caps, repeats, dev)
-    return {
+    doc = {
         "schema": 1,
         "meta": {
             "created_unix": int(time.time()),
             **device_meta(dev),
             "smoke": smoke, "full": full, "repeats": repeats,
-            "caps": caps,
-            "not_ported": NOT_PORTED,
+            "caps": caps, "devices": devices,
         },
         "results": results,
         "gate": _gate(results),
         "gate_delta": _gate_delta(results),
     }
+    if devices is not None:
+        doc["gate_sharded"] = _gate_sharded(results)
+    return doc
 
 
 def main(argv=None) -> None:
@@ -347,9 +463,12 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--cost-out", default=None, metavar="PATH",
                     help="write one cost record per engine call (JSONL)")
+    ap.add_argument("--devices", type=int, default=None, metavar="P",
+                    help="add the sharded leg on P ranks (gloo on the CPU, "
+                         "NCCL with one GPU a rank) and gate_sharded")
     args = ap.parse_args(argv)
     run(args.smoke, args.full, repeats=args.repeats, out=args.out,
-        device=args.device, cost_out=args.cost_out)
+        device=args.device, cost_out=args.cost_out, devices=args.devices)
 
 
 if __name__ == "__main__":

@@ -34,8 +34,8 @@ stays <= 2x the deadline.
 Zipf throughput >= 0.9x untraced (best of paired drains).
 
 ``--devices P > 1`` (JAX's sharded leg and ``gate_sharded``) raises
-``NotImplementedError``: the sharded engines are not ported yet (ROADMAP
-A.11).
+``NotImplementedError``: serving from the sharded engines comes with
+ROADMAP A.11b.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.serve_bench [--smoke]
         [--device cuda|cpu] [--overload] [--obs] [--out PATH]
@@ -447,8 +447,8 @@ def main(argv=None) -> str:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--devices", type=int, default=1,
-                    help="mesh size for the sharded leg; only 1 runs (the "
-                         "sharded engines are not ported yet)")
+                    help="ranks for the sharded leg; only 1 runs "
+                         "(sharded serving comes with ROADMAP A.11b)")
     ap.add_argument("--overload", action="store_true",
                     help="add the 2x-offered-load degraded-mode leg and "
                          "its shed-don't-collapse gate")

@@ -24,8 +24,8 @@ at least one leg).
 The calibration must come from the bench's backend (a ``TunedPolicy``
 refuses another): ``CALIBRATION_torch.json`` for the card, written by
 ``python -m repro_torch.tune.calibrate``.  ``--devices P > 1`` (JAX's
-P = 4 legs) raises ``NotImplementedError``: the sharded engines are not
-ported yet (ROADMAP A.11).
+P = 4 legs) raises ``NotImplementedError``: they come with ROADMAP A.11b,
+with the sharded calibration.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.tune_bench [--smoke]
         [--device cuda|cpu] [--calibration CALIBRATION_torch.json]
@@ -294,8 +294,8 @@ def main(argv=None) -> str:
                          "crossovers (parity + engagement gate only)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard arity of the extra legs; only 1 runs (the "
-                         "sharded engines are not ported yet)")
+                    help="shard arity of the extra legs; only 1 runs "
+                         "(P > 1 comes with ROADMAP A.11b)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' races the plain engines")
     ap.add_argument("--calibration", default=DEFAULT_CALIBRATION,

@@ -19,12 +19,25 @@ Ported engines (single device):
     delta_stepping_kernel same, fused CUDA pull kernel (kernels/bucket_relax)
     multisource_csr       batched (S, n) fixpoint on CSR edges
 
+Sharded engines, called on every rank of a ``ShardGroup``
+(core/_dist.py; ``group=`` stands in for JAX's ``mesh=``):
+    dijkstra_sharded      Alg. 2, 1-D column-parallel + MINLOC      (paper, MPI)
+                          (``minloc=`` allgather | pmin | packed)
+    bellman_sharded       dense fixpoint, one all-gather a sweep
+    multisource           with a group: the batched dense fixpoint sharded
+    bellman_csr_sharded   vertex-partitioned CSR fixpoint, O(m/P) local
+                          pull (the ``ell_relax`` kernel on CUDA)
+    frontier_sharded      vertex-partitioned frontier push, the improved
+                          (id, label) pairs exchanged a sweep (the
+                          ``frontier_relax`` kernel on CUDA); accepts
+                          ``target=`` and runs the full fixpoint, as JAX's
+    multisource_csr_sharded  the batched union-frontier twin
+
 Each engine gives the JAX engine's answers bit for bit: the same ``dist``,
 the same ``pred`` (lowest-u tie-break), the same ``sweeps``,
 ``edges_relaxed`` and ``converged`` (None for the dense engines, as in
-JAX).  The dense engines densify a ``CsrGraph`` input (O(n²)).  The sharded
-engines belong to a later slice of the port and raise
-``NotImplementedError``.
+JAX).  The dense engines densify a ``CsrGraph`` input (O(n²)).  A sharded
+engine returns the same result on every rank.
 
 ``engine="auto"`` asks the serving layer's dispatch policy
 (serve/dispatch.py) for the engine: on the CPU it routes as the JAX
@@ -50,7 +63,8 @@ import torch
 
 from repro_torch.core import csr as csr_mod
 from repro_torch.core import graph as graph_mod
-from repro_torch.core.bellman import predecessors_from_dist, sssp_bellman
+from repro_torch.core.bellman import (predecessors_from_dist, sssp_bellman,
+                                     sssp_bellman_sharded)
 from repro_torch.core.bellman_csr import (csr_operands,
                                           predecessors_from_dist_csr,
                                           sssp_bellman_csr,
@@ -58,8 +72,13 @@ from repro_torch.core.bellman_csr import (csr_operands,
 from repro_torch.core.delta_stepping import (auto_delta, delta_operands,
                                              sssp_delta_stepping)
 from repro_torch.core.frontier import frontier_operands, sssp_frontier
-from repro_torch.core.multisource import sssp_multisource
+from repro_torch.core.multisource import (sssp_multisource,
+                                          sssp_multisource_sharded)
 from repro_torch.core.serial import dijkstra_serial
+from repro_torch.core.sharded import _MINLOC, dijkstra_sharded
+from repro_torch.core.sharded_csr import (sssp_bellman_csr_sharded,
+                                          sssp_frontier_sharded,
+                                          sssp_multisource_csr_sharded)
 
 ENGINES = (
     "serial",
@@ -89,13 +108,9 @@ _DELTA_CONSUMERS = FRONTIER_ENGINES + DELTA_ENGINES
 SHARDED_CSR_ENGINES = ("bellman_csr_sharded", "frontier_sharded",
                        "multisource_csr_sharded")
 DENSE_ENGINES = ("bellman", "bellman_kernel", "multisource")
-PORTED_ENGINES = (("serial",) + DENSE_ENGINES + CSR_ENGINES + DELTA_ENGINES
-                  + ("multisource_csr",))
-# the slice of the port each remaining engine waits for
-_LATER_SLICE = {
-    "dijkstra_sharded": "sharded", "bellman_sharded": "sharded",
-    **{e: "sharded" for e in SHARDED_CSR_ENGINES},
-}
+# engines that run on every rank of a group (multisource too, given one)
+SHARDED_ENGINES = (("dijkstra_sharded", "bellman_sharded")
+                   + SHARDED_CSR_ENGINES)
 
 
 @dataclasses.dataclass
@@ -128,17 +143,20 @@ def resolve_device(device) -> torch.device:
 
 def refuse_sharded(devices: int, what: str) -> None:
     """Raise ``NotImplementedError`` when ``what`` asks for ``devices`` > 1:
-    the sharded engines are not ported yet (ROADMAP A.11), and nothing
-    quietly runs at one device instead."""
+    its sharded leg needs the leader / follower rank protocol of ROADMAP
+    A.11b (the sharded engines themselves are ported), and nothing quietly
+    runs at one device instead."""
     if int(devices) > 1:
         raise NotImplementedError(
-            f"{what} with {devices} devices needs the sharded engines, "
-            f"which are not ported yet (ROADMAP A.11); run it on one device")
+            f"{what} with {devices} devices is not ported yet: its sharded "
+            f"leg comes with ROADMAP A.11b; run it on one device")
 
 
-def _validate(engine, delta, target):
-    """Eager checks, before any staging: unknown or unported engines, a bad
-    Δ, and arguments an engine would silently ignore."""
+def _validate(engine, delta, target, group, minloc):
+    """Eager checks, before any staging: unknown engines, a bad Δ, and
+    arguments an engine would silently ignore (``group=`` outside the
+    sharded engines and ``multisource``, ``minloc=`` outside
+    ``dijkstra_sharded``)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     if delta is not None:
@@ -161,10 +179,14 @@ def _validate(engine, delta, target):
         raise ValueError(
             f"target= early exit needs a frontier engine "
             f"{FRONTIER_ENGINES}; got {engine!r}")
-    if engine in _LATER_SLICE:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: it comes with the "
-            f"{_LATER_SLICE[engine]} slice of the port")
+    if group is not None and engine not in SHARDED_ENGINES + (
+            "multisource",):
+        raise ValueError(f"engine {engine!r} runs on one device and would "
+                         f"ignore group=")
+    if minloc is not None and (engine != "dijkstra_sharded"
+                               or minloc not in _MINLOC):
+        raise ValueError(f"minloc= is one of {tuple(_MINLOC)} and only for "
+                         f"dijkstra_sharded; got {minloc!r} for {engine!r}")
     return delta
 
 
@@ -210,6 +232,8 @@ def shortest_paths(
     delta: Union[float, str, None] = None,
     target: int | None = None,
     target_lb: float | None = None,
+    group=None,
+    minloc: str | None = None,
 ) -> SsspResult:
     """Observability shim over :func:`_shortest_paths` (the facade, same
     arguments and docs).  With a tracer or cost log installed
@@ -222,10 +246,10 @@ def shortest_paths(
 
     tr = get_tracer()
     cl = get_cost_log()
+    kw = dict(device=device, max_sweeps=max_sweeps, target=target,
+              target_lb=target_lb, group=group, minloc=minloc)
     if not (tr.enabled or cl.enabled):
-        return _shortest_paths(g, source, engine=engine, device=device,
-                               max_sweeps=max_sweeps, delta=delta,
-                               target=target, target_lb=target_lb)
+        return _shortest_paths(g, source, engine=engine, delta=delta, **kw)
 
     import time as _time
 
@@ -238,9 +262,7 @@ def shortest_paths(
     m = _edge_count(g)
     t0 = _time.perf_counter()
     with tr.span("solve", engine=engine) as sp:
-        res = _shortest_paths(g, source, engine=engine, device=device,
-                              max_sweeps=max_sweeps, delta=delta,
-                              target=target, target_lb=target_lb)
+        res = _shortest_paths(g, source, engine=engine, delta=delta, **kw)
         wall_ms = (_time.perf_counter() - t0) * 1e3
         n = int(np.shape(res.dist)[-1])
         batch = int(np.shape(res.dist)[0]) if np.ndim(res.dist) == 2 else 1
@@ -259,8 +281,11 @@ def shortest_paths(
     else:
         dval = 0.0
     backend, kind = backend_info(device)
-    cl.emit(engine=res.engine, n=n, m=m, batch=batch, nprocs=1, delta=dval,
-            sweeps=sweeps, edges_relaxed=edges, wall_ms=wall_ms,
+    # the ranks of the partition, as JAX records its mesh size
+    nprocs = (group.size if group is not None
+              and res.engine in SHARDED_CSR_ENGINES else 1)
+    cl.emit(engine=res.engine, n=n, m=m, batch=batch, nprocs=nprocs,
+            delta=dval, sweeps=sweeps, edges_relaxed=edges, wall_ms=wall_ms,
             converged=conv, backend=backend, device_kind=kind)
     return res
 
@@ -275,6 +300,8 @@ def _shortest_paths(
     delta: Union[float, str, None] = None,
     target: int | None = None,
     target_lb: float | None = None,
+    group=None,
+    minloc: str | None = None,
 ) -> SsspResult:
     """Run one SSSP engine on ``device``.  ``source`` is an int (or an int
     array for ``multisource`` and ``multisource_csr``).  ``g`` is a
@@ -296,11 +323,24 @@ def _shortest_paths(
 
     ``engine="auto"`` takes the engine (and, when ``delta`` is None, a Δ)
     from ``serve.dispatch.default_policy(device)``.
+
+    The sharded engines need ``group``, a ``ShardGroup`` (core/_dist.py)
+    whose device is ``device``, and are called on every rank of it with the
+    same arguments; ``multisource`` given a group runs sharded too.  The
+    graph is padded (dense engines) or partitioned (CSR engines) to the
+    group's size; each rank stages its own block only.  ``minloc`` picks
+    ``dijkstra_sharded``'s MINLOC collective (default ``"allgather"``).
     """
     engine, delta = _resolve_auto(g, source, engine=engine, delta=delta,
                                   target=target, device=device)
-    delta = _validate(engine, delta, target)
+    delta = _validate(engine, delta, target, group, minloc)
     dev = resolve_device(device)
+    if engine in SHARDED_ENGINES and group is None:
+        raise ValueError(f"engine {engine!r} needs a group")
+    if group is not None and not (
+            group.device.type == dev.type
+            and dev.index in (None, group.device.index)):
+        raise ValueError(f"device {dev} is not the group's {group.device}")
 
     from repro_torch.dynamic.overlay import DynamicGraph  # dynamic uses api
 
@@ -317,6 +357,13 @@ def _shortest_paths(
             adj = np.asarray(g, np.float32)
             g = graph_mod.Graph(adj=adj, n=adj.shape[0])
         cg = None
+
+    if engine in SHARDED_CSR_ENGINES:
+        return _sharded_csr(cg if cg is not None else g.to_csr(), source,
+                            engine, group, max_sweeps)
+    if engine in ("dijkstra_sharded", "bellman_sharded") or group is not None:
+        return _sharded_dense(cg.to_dense() if cg is not None else g, source,
+                              engine, group, max_sweeps, minloc)
 
     if engine == "serial" or engine in DENSE_ENGINES:
         adj = torch.tensor((cg.to_dense() if cg is not None else g).adj,
@@ -397,6 +444,50 @@ def _shortest_paths(
                                   sweep_fn=sweep_fn, max_sweeps=max_sweeps)
     return SsspResult(d.cpu().numpy(), p.cpu().numpy(), s, engine,
                       edges_relaxed=s * cg.nnz, converged=c)
+
+
+def _sharded_dense(g, source, engine, group, max_sweeps, minloc):
+    """The dense sharded engines on this rank's column slab of the padded
+    matrix (the paper's padding, §III-B.2)."""
+    gp = g.padded(group.size)
+    loc_n = gp.adj.shape[0] // group.size
+    v_base = group.rank * loc_n
+    adj_loc = torch.tensor(gp.adj[:, v_base:v_base + loc_n],
+                           device=group.device)
+    n = g.n
+    if engine == "multisource":
+        srcs = np.atleast_1d(np.asarray(source, np.int64))
+        D, s = sssp_multisource_sharded(
+            adj_loc, torch.tensor(srcs, device=group.device), group,
+            max_sweeps=max_sweeps)
+        return SsspResult(D[:, :n].cpu().numpy(), None, s, engine,
+                          sources=srcs.astype(np.int32))
+    if engine == "dijkstra_sharded":
+        d, p = dijkstra_sharded(adj_loc, int(source), group, n_true=n,
+                                minloc=minloc or "allgather")
+        return SsspResult(d[:n].cpu().numpy(), p[:n].cpu().numpy(), None,
+                          engine)
+    d, p, s = sssp_bellman_sharded(adj_loc, int(source), group,
+                                   max_sweeps=max_sweeps)
+    return SsspResult(d[:n].cpu().numpy(), p[:n].cpu().numpy(), s, engine)
+
+
+def _sharded_csr(cg, source, engine, group, max_sweeps):
+    """The CSR sharded engines on this rank's block of the partition."""
+    parts = cg.partitioned(group.size)
+    n = cg.n
+    if engine == "multisource_csr_sharded":
+        srcs = np.atleast_1d(np.asarray(source, np.int64))
+        D, s, e, c = sssp_multisource_csr_sharded(parts, srcs, group,
+                                                  max_sweeps=max_sweeps)
+        return SsspResult(D[:, :n].cpu().numpy(), None, s, engine,
+                          edges_relaxed=e, sources=srcs.astype(np.int32),
+                          converged=c)
+    run = (sssp_bellman_csr_sharded if engine == "bellman_csr_sharded"
+           else sssp_frontier_sharded)
+    d, p, s, e, c = run(parts, int(source), group, max_sweeps=max_sweeps)
+    return SsspResult(d[:n].cpu().numpy(), p[:n].cpu().numpy(), s, engine,
+                      edges_relaxed=e, converged=c)
 
 
 def recover_pred(result: SsspResult,

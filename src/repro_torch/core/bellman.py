@@ -13,7 +13,14 @@ loop reads one flag back to the host per sweep.
 
 ``use_frontier`` masks the rows whose label did not improve last sweep to
 INF, so they contribute nothing; the dense layout stays.
-``sssp_bellman_sharded`` belongs to the sharded slice of the port.
+
+``sssp_bellman_sharded`` distributes the fixpoint over the ranks of a
+:class:`~repro_torch.core._dist.ShardGroup`: each rank relaxes its own
+column block and ONE all-gather a sweep reassembles the distance vector —
+one collective a sweep (about the hop diameter of them) against
+Dijkstra's one MINLOC a vertex, the better-grained synchronization the
+paper's §V.2 asks for.  Its local min-plus is plain torch ops, as JAX's
+is.
 """
 from __future__ import annotations
 
@@ -66,8 +73,35 @@ def sssp_bellman(
     return dist, predecessors_from_dist(dist, adj, source), sweeps
 
 
+def sssp_bellman_sharded(adj_loc: torch.Tensor, source: int, group, *,
+                         max_sweeps: int | None = None):
+    """Distributed fixpoint SSSP: columns sharded over ``group``, the
+    distance vector replicated.  ``adj_loc`` is this rank's (n_pad, loc_n)
+    column block of the padded matrix (``Graph.padded(P)``).  Each sweep is
+    a local (n_pad, loc_n) min-plus matvec and one tiled all-gather.
+    Returns ``(dist (n_pad,), pred (n_pad,) int32, sweeps)`` on every rank;
+    pred comes from each owner's block at the fixpoint, diagonal masked."""
+    n_pad, loc_n = adj_loc.shape
+    if n_pad != loc_n * group.size:
+        raise ValueError(f"a ({n_pad}, {loc_n}) slab is not 1/{group.size} "
+                         f"of the padded matrix's columns")
+    v_base = group.rank * loc_n
+    cap = n_pad if max_sweeps is None else max_sweeps
+    dist = torch.full((n_pad,), torch.inf, dtype=adj_loc.dtype,
+                      device=adj_loc.device)
+    dist[source] = 0.0
+    changed, sweeps = True, 0         # the start differs from "no previous"
+    while sweeps < cap and changed:
+        mine = dist[v_base:v_base + loc_n]
+        new = group.all_gather(relax_sweep_ref(dist, adj_loc, own=mine))
+        changed = bool((new != dist).any())
+        dist, sweeps = new, sweeps + 1
+    pred = predecessors_from_dist(dist, adj_loc, source, col_base=v_base)
+    return dist, group.all_gather(pred), sweeps
+
+
 def predecessors_from_dist(dist: torch.Tensor, adj: torch.Tensor,
-                           source: int) -> torch.Tensor:
+                           source: int, *, col_base: int = 0) -> torch.Tensor:
     """pred[] at the fixpoint: ``pred[v] = argmin_u dist[u] + A[u, v]``
     (int32), lowest u on ties, as JAX's argmin.
 
@@ -77,22 +111,30 @@ def predecessors_from_dist(dist: torch.Tensor, adj: torch.Tensor,
     replaces, so the lowest u still wins ties and no (n, n) matrix is
     built.  Unreached vertices and the source get -1.  A valid tree
     whenever weights are strictly positive.
+
+    ``adj`` may be a column block (n, C) whose column c is vertex
+    ``col_base + c`` (a rank's slab); the result is then those C entries.
     """
-    n = adj.shape[0]
+    n, C = adj.shape
     dev = adj.device
-    step = max(1, _PRED_BLOCK_ELEMS // max(1, n))
-    best = torch.full((n,), torch.inf, dtype=dist.dtype, device=dev)
-    u_best = torch.zeros((n,), dtype=torch.int64, device=dev)
+    step = max(1, _PRED_BLOCK_ELEMS // max(1, C))
+    best = torch.full((C,), torch.inf, dtype=dist.dtype, device=dev)
+    u_best = torch.zeros((C,), dtype=torch.int64, device=dev)
     for u0 in range(0, n, step):
         u1 = min(n, u0 + step)
         via = dist[u0:u1, None] + adj[u0:u1]
-        rows = torch.arange(u1 - u0, device=dev)
-        via[rows, rows + u0] = torch.inf         # no self-predecessors
+        # no self-predecessors: row r of the block is vertex u0 + r, the
+        # column of that vertex u0 + r - col_base
+        r0, r1 = max(0, col_base - u0), min(u1 - u0, col_base + C - u0)
+        if r0 < r1:
+            rows = torch.arange(r0, r1, device=dev)
+            via[rows, rows + (u0 - col_base)] = torch.inf
         m, idx = torch.min(via, dim=0)
         better = m < best
         best = torch.where(better, m, best)
         u_best = torch.where(better, idx + u0, u_best)
-    pred = torch.where(torch.isfinite(dist), u_best, -1).to(torch.int32)
-    if n:
-        pred[source] = -1
+    own = dist[col_base:col_base + C]
+    pred = torch.where(torch.isfinite(own), u_best, -1).to(torch.int32)
+    if 0 <= source - col_base < C:
+        pred[source - col_base] = -1
     return pred

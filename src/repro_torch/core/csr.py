@@ -188,6 +188,23 @@ class CsrGraph:
             return _freeze(hip, out_dst[mask], out_w[mask])
         return self._memo(("_heavy_out_csr", float(delta)), build)
 
+    def partitioned(self, nprocs: int, *,
+                    pad_multiple: int = 8) -> "CsrPartition":
+        """1-D vertex partition across ``nprocs`` owners (the paper's
+        §III-B.2 partitioning at O(m/P) an owner, the sparse twin of
+        ``Graph.padded(P)`` plus column slices).  Vertices are padded to
+        ``n_pad = ceil(n / P) * P``; owner p gets ``[p*loc_n,
+        (p+1)*loc_n)`` and stores the arcs targeting it twice: ``in_*``
+        sorted by (local dst, src), the pull layout, and ``out_*`` sorted by
+        (global src, local dst) behind a per-owner CSR over all global
+        sources, the push layout.  Blocks are stacked along a leading owner
+        axis and padded to the largest block (rounded up to
+        ``pad_multiple``) with inert arcs (src 0, dst the last local row, w
+        INF).  Memoized per (P, pad)."""
+        def build():
+            return _partition_csr(self, nprocs, pad_multiple)
+        return self._memo(("_part", nprocs, pad_multiple), build)
+
     @classmethod
     def from_dense(cls, g: Graph) -> "CsrGraph":
         """Every finite off-diagonal entry of ``g.adj`` as an arc."""
@@ -214,6 +231,102 @@ class CsrGraph:
             return Graph(adj=_freeze(adj), n=self.n, directed=self.directed)
         return self._memo("_dense", build)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrPartition:
+    """Per-owner row blocks of a :class:`CsrGraph` (``CsrGraph.partitioned``),
+    numpy arrays stacked along a leading owner axis of size ``nprocs``;
+    core/sharded_csr.py stages one owner's block on its rank's device.
+
+    in_src:     (P, nnz_max) int32  global source of each arc.
+    in_dst_loc: (P, nnz_max) int32  local destination row, ascending per
+                owner; padding uses the last local row, so the order holds.
+    in_w:       (P, nnz_max) f32    weights, INF on padding.
+    out_indptr: (P, n_pad + 2) int32  per-owner CSR over global sources:
+                row u of owner p windows the arcs u -> p's block; the extra
+                trailing row is empty and absorbs the frontier exchange's
+                sentinel id n_pad.
+    out_dst_loc, out_w: the in_* arcs re-sorted by (src, local dst).
+    """
+
+    nprocs: int
+    n: int
+    n_pad: int
+    loc_n: int
+    nnz_max: int
+    in_src: np.ndarray
+    in_dst_loc: np.ndarray
+    in_w: np.ndarray
+    out_indptr: np.ndarray
+    out_dst_loc: np.ndarray
+    out_w: np.ndarray
+
+    @property
+    def per_device_edge_bytes(self) -> int:
+        """Edge-array bytes of ONE owner (the O(m/P) part; the O(n)
+        out_indptr is ``per_device_index_bytes``)."""
+        per = self.nnz_max * (self.in_src.itemsize + self.in_dst_loc.itemsize
+                              + self.in_w.itemsize + self.out_dst_loc.itemsize
+                              + self.out_w.itemsize)
+        return int(per)
+
+    @property
+    def per_device_index_bytes(self) -> int:
+        return int((self.n_pad + 2) * self.out_indptr.itemsize)
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes of the partition across all owners."""
+        return int(self.in_src.nbytes + self.in_dst_loc.nbytes
+                   + self.in_w.nbytes + self.out_indptr.nbytes
+                   + self.out_dst_loc.nbytes + self.out_w.nbytes)
+
+
+def _partition_csr(cg: CsrGraph, nprocs: int,
+                   pad_multiple: int) -> CsrPartition:
+    if nprocs < 1:
+        raise ValueError(f"nprocs must be >= 1, got {nprocs}")
+    n = cg.n
+    loc_n = -(-n // nprocs)
+    n_pad = loc_n * nprocs
+    dst = cg.dst_ids()                         # ascending => owner-grouped
+    # owner p's arcs are the contiguous indptr range of its row block
+    row_edges = np.minimum(np.arange(nprocs + 1) * loc_n, n)
+    bounds = np.asarray(cg.indptr)[row_edges]
+    blk_nnz = np.diff(bounds)
+    nnz_max = int(-(-max(int(blk_nnz.max()) if nprocs else 1, 1)
+                    // pad_multiple) * pad_multiple)
+
+    in_src = np.zeros((nprocs, nnz_max), np.int32)
+    in_dst_loc = np.full((nprocs, nnz_max), loc_n - 1, np.int32)
+    in_w = np.full((nprocs, nnz_max), INF, np.float32)
+    out_indptr = np.zeros((nprocs, n_pad + 2), np.int32)
+    out_dst_loc = np.zeros((nprocs, nnz_max), np.int32)
+    out_w = np.full((nprocs, nnz_max), INF, np.float32)
+
+    for p in range(nprocs):
+        lo, hi = int(bounds[p]), int(bounds[p + 1])
+        k = hi - lo
+        src = np.asarray(cg.indices[lo:hi], np.int32)
+        dloc = (dst[lo:hi] - p * loc_n).astype(np.int32)
+        w = np.asarray(cg.weights[lo:hi], np.float32)
+        in_src[p, :k] = src
+        in_dst_loc[p, :k] = dloc
+        in_w[p, :k] = w
+        order = np.lexsort((dloc, src))        # by src, then local dst
+        out_dst_loc[p, :k] = dloc[order]
+        out_w[p, :k] = w[order]
+        counts = np.bincount(src, minlength=n_pad)
+        ptr = np.concatenate([[0], np.cumsum(counts)])
+        out_indptr[p, :n_pad + 1] = ptr
+        out_indptr[p, n_pad + 1] = ptr[-1]     # sentinel row: zero degree
+    _freeze(in_src, in_dst_loc, in_w, out_indptr, out_dst_loc, out_w)
+    return CsrPartition(
+        nprocs=nprocs, n=n, n_pad=n_pad, loc_n=loc_n, nnz_max=nnz_max,
+        in_src=in_src, in_dst_loc=in_dst_loc, in_w=in_w,
+        out_indptr=out_indptr, out_dst_loc=out_dst_loc, out_w=out_w,
+    )
 
 def from_arrays(indptr, indices, weights, n: int,
                 directed: bool = False) -> CsrGraph:

@@ -86,6 +86,29 @@ def relax_edge_slots(dist, row_dist, starts, off, E, out_dst, out_w, fell):
     fell[tgt] |= dist[tgt] < old
 
 
+def relax_edge_slots_multi(ND, row_D, starts, off, E, out_dst, out_w):
+    """The multisource form of :func:`relax_edge_slots`: scatter-min
+    ``row_D[:, row] + w`` into ``ND[:, dst]`` for all S sources at once,
+    over the E slots of a compacted frontier's windows, in one pass.
+    Returns a new (S, n') tensor; ``ND`` is not written.
+
+    The slot walk (window arithmetic, the out_dst / out_w gathers) runs
+    once for all S rows; only the (S, E) candidates are per source.
+    core/sharded_csr.py's batched engine pushes its union frontier with it.
+    ND: (S, n'); row_D: (S, F) each frontier row's label per source; the
+    rest as in :func:`relax_edge_slots`.
+    """
+    E = int(E)
+    if E == 0:
+        return ND.clone()
+    slots = torch.arange(E, device=ND.device)
+    row = torch.searchsorted(off, slots, right=True) - 1
+    pos = starts[row] + (slots - off[row])
+    cand = row_D[:, row] + out_w[pos][None, :]
+    tgt = out_dst[pos].long()
+    return ND.scatter_reduce(1, tgt.expand_as(cand), cand, "amin")
+
+
 def pull_edge_slots(nd, fids, src_dist, starts, off, E, in_src, in_w):
     """The pull form of :func:`relax_edge_slots`: scatter-min
     ``src_dist[in_src[pos]] + in_w[pos]`` over the E slots of the compacted

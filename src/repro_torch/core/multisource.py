@@ -4,7 +4,10 @@ repro/core/multisource.py).
 The min-plus sweep generalises to a min-plus matmul over a (S, n)
 distance matrix: S sources share every read of the adjacency matrix.  The
 fixpoint and each row equal running the paper's Alg. 3 once per source.
-``sssp_multisource_sharded`` belongs to the sharded slice of the port.
+
+``sssp_multisource_sharded`` distributes the batched sweep over the ranks
+of a :class:`~repro_torch.core._dist.ShardGroup`: one all-gather of the
+(S, loc_n) block a sweep, in plain torch ops as JAX's.
 """
 from __future__ import annotations
 
@@ -41,6 +44,29 @@ def sssp_multisource(
     changed, sweeps = D.numel() > 0, 0
     while sweeps < cap and changed:
         new = torch.minimum(sweep(D, adj), D)
+        changed = bool((new != D).any())
+        D, sweeps = new, sweeps + 1
+    return D, sweeps
+
+
+def sssp_multisource_sharded(adj_loc: torch.Tensor, sources: torch.Tensor,
+                             group, *, max_sweeps: int | None = None):
+    """Distributed batched fixpoint: columns sharded over ``group``, D
+    replicated.  ``adj_loc`` is this rank's (n_pad, loc_n) column block of
+    the padded matrix.  One all-gather of the (S, loc_n) block a sweep.
+    Returns ``(D (S, n_pad), sweeps)`` on every rank."""
+    n_pad, loc_n = adj_loc.shape
+    if n_pad != loc_n * group.size:
+        raise ValueError(f"a ({n_pad}, {loc_n}) slab is not 1/{group.size} "
+                         f"of the padded matrix's columns")
+    v_base = group.rank * loc_n
+    cap = n_pad if max_sweeps is None else max_sweeps
+    D = init_dist(n_pad, sources, adj_loc.dtype)
+    changed, sweeps = D.numel() > 0, 0
+    while sweeps < cap and changed:
+        mine = D[:, v_base:v_base + loc_n]
+        new = group.all_gather(relax_sweep_multi_ref(D, adj_loc, own=mine),
+                               dim=1)
         changed = bool((new != D).any())
         D, sweeps = new, sweeps + 1
     return D, sweeps

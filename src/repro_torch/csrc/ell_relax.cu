@@ -6,7 +6,11 @@
 //
 //     out[v] = min(dist[v], min_{e in row v} dist[src[e]] + w[e])
 //
-// with row v the arcs [indptr[v], indptr[v+1]) of the incoming CSR.  The
+// with row v the arcs [indptr[v], indptr[v+1]) of the incoming CSR.  A
+// row base b makes the rows a block of a longer label vector: out has the
+// CSR's rows and row v folds in dist[b + v] (the sharded pull of
+// bellman_csr_sharded: rows are the owner's block, sources the gathered
+// vector); the single-device sweep passes b = 0.  The
 // TPU kernel read a padded ELL, fixed-width rows for its (8, 128) tiles;
 // this kernel reads the CSR itself, the same candidates without the
 // padding slots.  Distances are >= 0 or +inf, so no candidate is NaN,
@@ -53,7 +57,8 @@ __global__ void ell_relax_kernel(const float* __restrict__ dist,
                                  const int* __restrict__ indptr,
                                  const int* __restrict__ src,
                                  const float* __restrict__ w,
-                                 float* __restrict__ out, long long n) {
+                                 float* __restrict__ out, long long n,
+                                 long long row_base) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   // the loop bound is uniform across the block, so every lane of a warp
   // calls pull_row together
@@ -63,7 +68,7 @@ __global__ void ell_relax_kernel(const float* __restrict__ dist,
     const bool row = v < n;
     const float best = csr_pull::pull_row<G>(dist, indptr, src, w, v, row);
     if (row && (threadIdx.x & (G - 1)) == 0)
-      out[v] = fminf(__ldg(dist + v), best);
+      out[v] = fminf(__ldg(dist + row_base + v), best);
   }
 }
 
@@ -71,11 +76,12 @@ __global__ void ell_relax_kernel(const float* __restrict__ dist,
 
 extern "C" int ell_relax_launch(const float* dist, const int* indptr,
                                 const int* src, const float* w, float* out,
-                                long long n, int group, void* stream) {
+                                long long n, long long row_base, int group,
+                                void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return csr_pull::with_group(group, [&](auto g) {
     constexpr int G = decltype(g)::value;
     return csr_pull::launch<ell_relax_kernel<G>, G>(n, s, dist, indptr, src,
-                                                    w, out, n);
+                                                    w, out, n, row_base);
   });
 }

@@ -11,6 +11,13 @@
 // in place, and fell[v] = 1 for every label that fell.  Rows with u >= n
 // are the compaction sentinel and are skipped.
 //
+// Explicit labels (the local push of frontier_sharded): the caller gives
+// each row's label du[f] = flabels[f] (the exchanged frontier pairs), the
+// ids are global sources bounded by the rows of the out-CSR (the owner's
+// CSR over all sources; its last row is empty and absorbs the exchange's
+// sentinel id), and dist, dst and fell are the owner's block.  Only the
+// gather differs: it copies the given label instead of reading dist[u].
+//
 // Jacobi snapshot over F rows, not n: a first small launch gathers each
 // frontier row's label and out-window (empty for a sentinel or an INF
 // label) into F-row scratch; the push reads its sources only from there.
@@ -61,11 +68,13 @@
 
 namespace {
 
-// per frontier row f: its label and its out-window [beg, end), empty for
-// a sentinel id or an INF label (which pushes nothing)
+// per frontier row f: its label (flabels[f] where given, else dist[u])
+// and its out-window [beg, end), empty for an id outside [0, bound) or an
+// INF label (which pushes nothing)
 __global__ void frontier_gather_kernel(const float* __restrict__ dist,
                                        const long long* __restrict__ fids,
-                                       long long F, long long n,
+                                       const float* __restrict__ flabels,
+                                       long long F, long long bound,
                                        const int* __restrict__ indptr,
                                        float* __restrict__ du,
                                        int2* __restrict__ win) {
@@ -74,7 +83,9 @@ __global__ void frontier_gather_kernel(const float* __restrict__ dist,
                      threadIdx.x;
        f < F; f += stride) {
     const long long u = fids[f];
-    const float d = u >= 0 && u < n ? dist[u] : CUDART_INF_F;
+    const float d = u < 0 || u >= bound ? CUDART_INF_F
+                    : flabels != nullptr ? flabels[f]
+                                         : dist[u];
     du[f] = d;
     win[f] = d != CUDART_INF_F ? make_int2(indptr[u], indptr[u + 1])
                                : make_int2(0, 0);
@@ -133,9 +144,12 @@ __global__ void frontier_push_kernel(const float* __restrict__ du,
 
 }  // namespace
 
-// scratch: 3F int32 of the caller's, the rows' windows (int2) then labels
+// scratch: 3F int32 of the caller's, the rows' windows (int2) then labels;
+// flabels null for the labels of dist itself; ids at or past ``bound``
+// (n, or the out-CSR's rows with flabels) are skipped
 extern "C" int frontier_relax_launch(float* dist, const long long* fids,
-                                     int* scratch, long long F, long long n,
+                                     const float* flabels, int* scratch,
+                                     long long F, long long bound,
                                      const int* indptr, const int* dst,
                                      const float* w, unsigned char* fell,
                                      int group, void* stream) {
@@ -147,8 +161,9 @@ extern "C" int frontier_relax_launch(float* dist, const long long* fids,
   const long long need = (F + csr_pull::kThreads - 1) / csr_pull::kThreads;
   frontier_gather_kernel<<<static_cast<unsigned>(
                                need < kGatherBlocks ? need : kGatherBlocks),
-                           csr_pull::kThreads, 0, s>>>(dist, fids, F, n,
-                                                       indptr, du, win);
+                           csr_pull::kThreads, 0, s>>>(dist, fids, flabels,
+                                                       F, bound, indptr, du,
+                                                       win);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return csr_pull::with_group(group, [&](auto g) {

@@ -66,12 +66,19 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 
 def check_csr(dist: torch.Tensor, indptr: torch.Tensor,
-              indices: torch.Tensor, weights: torch.Tensor) -> None:
+              indices: torch.Tensor, weights: torch.Tensor, *,
+              row_base: int | None = None) -> None:
     """Raise unless ``(indptr, indices, weights)`` is an int32 / int32 /
-    float32 CSR of ``dist``'s n rows whose arc count fits in int32 (the
-    CUDA pull kernels index arcs with 32 bits)."""
+    float32 CSR whose arc count fits in int32 (the CUDA pull kernels index
+    arcs with 32 bits), with one row a label of ``dist`` or, given
+    ``row_base``, one row a label of the block ``dist[row_base:row_base +
+    rows]``."""
     n, m = indptr.shape[0] - 1, indices.shape[0]
-    check(dist, "dist", torch.float32, (n,))
+    check(dist, "dist", torch.float32,
+          (n if row_base is None else dist.shape[0],))
+    if row_base is not None and not 0 <= row_base <= dist.shape[0] - n:
+        raise ValueError(f"rows [{row_base}, {row_base + n}) are not labels "
+                         f"of dist ({dist.shape[0]},)")
     check(indptr, "indptr", torch.int32, (n + 1,))
     check(indices, "indices", torch.int32, (m,))
     check(weights, "weights", torch.float32, (m,))

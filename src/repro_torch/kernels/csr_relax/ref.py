@@ -24,13 +24,18 @@ def ell_relax_ref(dist: torch.Tensor, ell_idx: torch.Tensor,
 
 
 def ell_relax_csr_ref(dist: torch.Tensor, indptr: torch.Tensor,
-                      indices: torch.Tensor,
-                      weights: torch.Tensor) -> torch.Tensor:
+                      indices: torch.Tensor, weights: torch.Tensor, *,
+                      row_base: int = 0) -> torch.Tensor:
     """The same sweep over the incoming CSR (the CUDA kernel's operand): a
     segment-min of the arcs' candidates between the row offsets, folded
-    with the self-distance.  (n,), (n+1,), (m,), (m,) -> (n,)."""
-    return segment_relax_ref(dist, indices,
-                             row_ids(indptr, indices.shape[0]), weights)
+    with the self-distance.  (n,), (n+1,), (m,), (m,) -> (n,).  With a
+    ``row_base`` the R rows of the CSR are the labels ``dist[row_base:
+    row_base + R]`` and the result is (R,)."""
+    rows = indptr.shape[0] - 1
+    via = dist[indices.long()] + weights
+    own = dist.narrow(0, row_base, rows)
+    return own.scatter_reduce(0, row_ids(indptr, indices.shape[0]), via,
+                              "amin")
 
 
 def row_ids(indptr: torch.Tensor, m: int) -> torch.Tensor:

@@ -19,21 +19,25 @@ def _rows(n: int, s: int = 1) -> int:
 
 
 def relax_sweep_ref(dist: torch.Tensor, adj: torch.Tensor, *,
-                    block: int | None = None) -> torch.Tensor:
+                    block: int | None = None,
+                    own: torch.Tensor | None = None) -> torch.Tensor:
     """One relaxation sweep. (n,), (n, n) -> (n,).
 
     new[v] = min(dist[v], min_u(dist[u] + adj[u, v]))
 
     The paper's CUDA kernel (Alg. 4) as a min-plus matvec, with the
-    contraction taken ``block`` rows of u at a time.
+    contraction taken ``block`` rows of u at a time.  ``adj`` may be a
+    column block (n, C) of the matrix (a rank's slab in bellman_sharded);
+    ``own`` (C,) are then its columns' labels, folded in place of dist.
     """
-    n = adj.shape[0]
-    step = block or _rows(n)
-    out = dist
+    n, C = adj.shape
+    step = block or _rows(C)
+    base = dist if own is None else own
+    out = base
     for u0 in range(0, n, step):
         cand = (dist[u0:u0 + step, None] + adj[u0:u0 + step]).amin(dim=0)
         out = torch.minimum(out, cand)
-    return out.clone() if out is dist else out
+    return out.clone() if out is base else out
 
 
 def relax_sweep_frontier_ref(dist: torch.Tensor, frontier: torch.Tensor,
@@ -51,18 +55,21 @@ def relax_sweep_frontier_ref(dist: torch.Tensor, frontier: torch.Tensor,
 
 
 def relax_sweep_multi_ref(D: torch.Tensor, adj: torch.Tensor, *,
-                          block: int | None = None) -> torch.Tensor:
+                          block: int | None = None,
+                          own: torch.Tensor | None = None) -> torch.Tensor:
     """Batched (multi-source) sweep. (S, n), (n, n) -> (S, n).
 
     new[s, v] = min(D[s, v], min_u(D[s, u] + adj[u, v]))
 
-    A min-plus matmul, blocked over u like ``relax_sweep_ref``.
+    A min-plus matmul, blocked over u like ``relax_sweep_ref``, which
+    also says what a column block ``adj`` (n, C) with ``own`` (S, C) is.
     """
     S, n = D.shape
-    step = block or _rows(n, S)
-    out = D
+    step = block or _rows(adj.shape[1], S)
+    base = D if own is None else own
+    out = base
     for u0 in range(0, n, step):
         cand = (D[:, u0:u0 + step, None]
                 + adj[None, u0:u0 + step, :]).amin(dim=1)
         out = torch.minimum(out, cand)
-    return out.clone() if out is D else out
+    return out.clone() if out is base else out

@@ -6,12 +6,17 @@
         --corpus road --nodes 4000000 --engine delta_stepping_kernel --verify
     PYTHONPATH=src python -m repro_torch.launch.sssp_run --device cuda \
         --engine bellman_kernel --nodes 40000 --edges 120000 --verify
+    PYTHONPATH=src python -m repro_torch.launch.sssp_run --device cpu \
+        --engine frontier_sharded --procs 4 --nodes 2000 --verify
 
 Graphs are CSR (``--corpus random|road|hub``), except that ``serial`` and
 the dense engines take the random corpus as a dense ``Graph`` (the
 adjacency matrix of ``random_graph``, O(n²) memory; they densify the other
-corpora).  Timing covers staging to the device, the solve and the copy of
-the result back; graph generation is excluded.  ``--verify`` holds the
+corpora).  The sharded engines (and ``multisource`` with ``--procs`` > 1)
+run on ``--procs`` ranks spawned through core/_dist.spawn: gloo on
+``--device cpu``, NCCL on ``cuda`` with one GPU a rank; rank 0 reports.
+Timing covers staging to the device, the solve and the copy of the
+result back; graph generation is excluded.  ``--verify`` holds the
 distances against
 ``scipy.sparse.csgraph.dijkstra`` in float64 (the float32 path sums differ
 from it by rounding only, hence the relative tolerance).
@@ -39,16 +44,42 @@ def scipy_distances(cg, sources) -> np.ndarray:
     return dijkstra(a, directed=True, indices=sources)
 
 
+def solve_timed(g, source, engine, device, repeats: int, group=None,
+                **kw):
+    """``repeats`` solves of ``g``; returns the walls (s) and the last
+    result.  On a spawned rank ``group`` is its ShardGroup."""
+    import torch
+
+    from repro_torch.core.api import shortest_paths
+
+    times, res = [], None
+    for _ in range(repeats):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = shortest_paths(g, source, engine=engine, device=device,
+                             group=group, **kw)
+        times.append(time.perf_counter() - t0)
+    return times, res
+
+
+def _rank_solve(group, g, source, engine, repeats, kw):
+    return solve_timed(g, source, engine, group.device, repeats, group, **kw)
+
+
 def main(argv=None):
+    import tempfile
+
     import torch
 
     from repro_torch.core import csr as C
     from repro_torch.core import graph as G
-    from repro_torch.core.api import (DENSE_ENGINES, PORTED_ENGINES,
-                                      resolve_device, shortest_paths)
+    from repro_torch.core._dist import BACKEND_OF, spawn
+    from repro_torch.core.api import (DENSE_ENGINES, ENGINES,
+                                      SHARDED_ENGINES, resolve_device)
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", default="frontier", choices=PORTED_ENGINES)
+    ap.add_argument("--engine", default="frontier", choices=ENGINES)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--corpus", default="random",
@@ -63,6 +94,9 @@ def main(argv=None):
     ap.add_argument("--delta", default=None,
                     help="Δ bucket width, a positive float or 'auto' "
                          "(frontier and delta_stepping engines)")
+    ap.add_argument("--procs", type=int, default=1,
+                    help="ranks for the sharded engines and multisource "
+                         "(gloo on the CPU, NCCL with one GPU a rank)")
     ap.add_argument("--source", type=int, default=0)
     ap.add_argument("--sources", type=int, default=8,
                     help="batch size for multisource and multisource_csr")
@@ -74,8 +108,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    dense = (args.corpus == "random"
-             and args.engine in ("serial",) + DENSE_ENGINES)
+    sharded = args.engine in SHARDED_ENGINES or (
+        args.engine == "multisource" and args.procs > 1)
+    if args.procs < 1 or (args.procs > 1 and not sharded):
+        ap.error(f"--procs {args.procs} needs a sharded engine or "
+                 f"multisource")
+    dense = (args.corpus == "random" and args.engine in (
+        "serial", "dijkstra_sharded", "bellman_sharded") + DENSE_ENGINES)
     m = 3 * args.nodes if args.edges is None else args.edges
     if args.corpus == "road":
         g = C.road_like_csr_graph(args.nodes, seed=args.seed)
@@ -91,21 +130,24 @@ def main(argv=None):
     delta = args.delta
     if delta is not None and delta != "auto":
         delta = float(delta)
-    multi = args.engine in ("multisource", "multisource_csr")
+    multi = args.engine in ("multisource", "multisource_csr",
+                            "multisource_csr_sharded")
     source = np.arange(args.sources) % g.n if multi else args.source
     kw = {} if delta is None else {"delta": delta}
 
-    times, res = [], None
-    for _ in range(args.repeats):
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = shortest_paths(g, source, engine=args.engine, device=dev, **kw)
-        times.append(time.perf_counter() - t0)
+    if sharded:
+        with tempfile.TemporaryDirectory() as store:
+            times, res = spawn(_rank_solve, args.procs,
+                               backend=BACKEND_OF[dev.type], store_dir=store,
+                               args=(g, source, args.engine, args.repeats,
+                                     kw))[0]
+    else:
+        times, res = solve_timed(g, source, args.engine, dev, args.repeats,
+                                 **kw)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"engine={args.engine} corpus={args.corpus} n={g.n} m={cg.nnz} "
-          f"device={name} time={min(times):.6f}s"
+          f"device={name} procs={args.procs} time={min(times):.6f}s"
           + (f" sweeps={res.sweeps}" if res.sweeps is not None else "")
           + (f" edges_relaxed={res.edges_relaxed}"
              if res.edges_relaxed is not None else ""))

@@ -39,8 +39,8 @@ expected status (or the retry counters).
 by ``python -m repro_torch.tune.calibrate``) serves through the port's
 ``TunedPolicy``, which refuses a calibration measured on another
 backend.  ``--devices P > 1``
-and ``--shard-threshold`` raise ``NotImplementedError``: the sharded
-engines are not ported yet (ROADMAP A.11).
+and ``--shard-threshold`` raise ``NotImplementedError``: serving from the
+sharded engines comes with ROADMAP A.11b.
 
 ``main`` returns a summary dict (per scenario: latency, throughput,
 answers by path, rows verified) for in-process callers.
@@ -406,11 +406,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--devices", type=int, default=1,
-                    help="mesh size for the sharded route; only 1 runs "
-                         "(the sharded engines are not ported yet)")
+                    help="ranks for the sharded route; only 1 runs "
+                         "(sharded serving comes with ROADMAP A.11b)")
     ap.add_argument("--shard-threshold", type=int, default=None,
-                    help="sharded-route crossover; refused (the sharded "
-                         "engines are not ported yet)")
+                    help="sharded-route crossover; refused (sharded "
+                         "serving comes with ROADMAP A.11b)")
     ap.add_argument("--verify", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="bitwise-check every answer vs the reference "
@@ -451,8 +451,8 @@ def main(argv=None) -> dict:
     refuse_sharded(args.devices, "sssp_serve --devices")
     if args.shard_threshold is not None:
         raise NotImplementedError(
-            "sssp_serve --shard-threshold routes to the sharded engines, "
-            "which are not ported yet (ROADMAP A.11)")
+            "sssp_serve --shard-threshold routes to sharded serving, which "
+            "comes with ROADMAP A.11b")
     dev = resolve_device(args.device)
     if args.calibration:
         from repro_torch.tune.model import load_model

@@ -16,9 +16,9 @@ worth pinning here:
 * the **landmark set** (serve/landmarks.py), built at registration with
   one batched multisource solve.
 
-The vertex-partitioned view of the sharded engines belongs to the
-sharded slice of the port (ROADMAP A.11): ``partition()`` and
-``partition_ops()`` raise ``NotImplementedError``.
+The vertex-partitioned view the sharded engines serve from comes with
+the serving seams of ROADMAP A.11b (the engines themselves are ported):
+``partition()`` and ``partition_ops()`` raise ``NotImplementedError``.
 
 Memory is accounted with the containers' own byte counters (``CsrGraph.
 nbytes``, ``LandmarkSet.nbytes``, ``.nbytes`` of every distinct staged
@@ -53,8 +53,8 @@ from repro_torch.core.frontier import frontier_operands
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve.landmarks import LandmarkSet, build_landmarks
 
-_SHARDED_SLICE = ("the sharded engines and their vertex-partitioned view "
-                  "belong to the sharded slice of the port (ROADMAP A.11)")
+_SHARDED_SLICE = ("serving from the sharded engines' vertex-partitioned "
+                  "view comes with ROADMAP A.11b")
 
 
 @dataclasses.dataclass

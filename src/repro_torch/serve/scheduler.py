@@ -31,8 +31,9 @@ graph's frontier sweep is the ``frontier_relax`` kernel
 Engine SELECTION routes through the dispatch seam (serve/dispatch.py).
 Graphs the policy would shard (at or above its shard threshold, with
 devices to shard across) would solve on the vertex-partitioned engines,
-which belong to the sharded slice of the port (ROADMAP A.11): that route
-raises ``NotImplementedError``, out of the tick, rather than being
+whose serving seams (a leader rank driving the others) come with ROADMAP
+A.11b: that route raises ``NotImplementedError``, out of the tick, rather
+than being
 answered as a transient solve failure.  Cache keys still carry the
 shard arity the policy's pure size check gives.
 
@@ -111,10 +112,11 @@ VIAS = ("trivial", "cache", "landmark", "batch", "target", "mutate",
 
 
 def _refuse_sharded(choice, handle) -> None:
-    """The sharded route of a batch or p2p solve: not ported yet."""
+    """The sharded route of a batch or p2p solve: its serving seam is not
+    ported yet."""
     raise NotImplementedError(
-        f"{choice.engine} serving of {handle.name!r}: the sharded engines "
-        "belong to the sharded slice of the port (ROADMAP A.11)")
+        f"{choice.engine} serving of {handle.name!r}: serving from the "
+        "sharded engines comes with ROADMAP A.11b")
 
 
 @dataclasses.dataclass

@@ -16,7 +16,7 @@ On a CUDA device the engines are the kernel twins the CUDA dispatch names
 (``frontier_kernel``, ``bellman_csr_kernel``, ``delta_stepping_kernel``)
 and ``multisource_csr``; on the CPU JAX's plain set (``frontier``,
 ``bellman_csr``, ``delta_stepping``, ``multisource_csr``).  Shard arity
-is 1: the sharded engines are not ported yet (ROADMAP A.11).
+is 1: the sharded calibration records come with ROADMAP A.11b.
 
 Every solve goes through ``api.shortest_paths`` + ``obs.CostLog`` — the
 calibration records ARE ordinary v2 cost records, plus the per-graph
@@ -222,8 +222,8 @@ def main(argv=None) -> str:
     ap.add_argument("--smoke", action="store_true", help="CI-sized grid")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard arity; only 1 runs (the sharded engines "
-                         "are not ported yet)")
+                    help="shard arity; only 1 runs (P > 1 comes with "
+                         "ROADMAP A.11b)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' calibrates the plain engines")
     ap.add_argument("--out", default=DEFAULT_OUT)

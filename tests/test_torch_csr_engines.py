@@ -236,11 +236,14 @@ def test_dense_graph_input_converts_like_jax():
     ("bellman", {"delta": 5.0}, ValueError),
     ("bellman_kernel", {"target": 3}, ValueError),
     ("multisource", {"delta": "auto"}, ValueError),
-    ("dijkstra_sharded", {}, NotImplementedError),
-    ("bellman_sharded", {}, NotImplementedError),
-    ("bellman_csr_sharded", {}, NotImplementedError),
-    ("frontier_sharded", {}, NotImplementedError),
-    ("multisource_csr_sharded", {}, NotImplementedError),
+    # the sharded engines need a group (JAX's "needs a mesh")
+    ("dijkstra_sharded", {}, ValueError),
+    ("bellman_sharded", {}, ValueError),
+    ("bellman_csr_sharded", {}, ValueError),
+    ("frontier_sharded", {}, ValueError),
+    ("multisource_csr_sharded", {}, ValueError),
+    ("dijkstra_sharded", {"minloc": "fastest"}, ValueError),
+    ("frontier", {"minloc": "pmin"}, ValueError),
     ("auto", {"delta": "wide"}, ValueError),
 ])
 def test_eager_validation_and_unported_engines(engine, kw, exc):
@@ -253,13 +256,13 @@ def test_engine_tuple_matches_jax():
     from repro.core import api as J
 
     assert T.ENGINES == J.ENGINES
-    assert set(T.PORTED_ENGINES) | set(T._LATER_SLICE) == set(T.ENGINES)
+    assert T.SHARDED_CSR_ENGINES == J.SHARDED_CSR_ENGINES
 
 
 def test_cuda_device_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tg = TC.sparse_csr_graph(20)
-    for eng in T.PORTED_ENGINES:
+    for eng in T.ENGINES:
         with pytest.raises(RuntimeError, match="CUDA"):
             T.shortest_paths(tg, 0, engine=eng)       # default device="cuda"
     with pytest.raises(RuntimeError, match="CUDA"):

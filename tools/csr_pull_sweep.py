@@ -67,7 +67,7 @@ def call(name: str, fn, group: int, dist, csr, hi):
     ptrs = [t.data_ptr() for t in (dist, *csr)]
     n, stream = dist.shape[0], common.stream(dist)
     if name == "ell_relax":
-        rc, res = fn(*ptrs, out.data_ptr(), n, group, stream), (out,)
+        rc, res = fn(*ptrs, out.data_ptr(), n, 0, group, stream), (out,)
     else:
         flag = torch.zeros((), dtype=torch.int32, device=dist.device)
         rc = fn(*ptrs, hi.data_ptr(), out.data_ptr(), flag.data_ptr(), n,
@@ -83,7 +83,7 @@ def push_once(fn, group: int, fids, ops, scratch, out, fell):
     from repro_torch.kernels import common
 
     n = out.shape[0]
-    rc = fn(out.data_ptr(), fids.data_ptr(), scratch.data_ptr(),
+    rc = fn(out.data_ptr(), fids.data_ptr(), None, scratch.data_ptr(),
             fids.numel(), n, ops["out_indptr"].data_ptr(),
             ops["out_dst"].data_ptr(), ops["out_w"].data_ptr(),
             fell.data_ptr(), group, common.stream(out))
