@@ -91,13 +91,26 @@ the kernels' operation bounds use them) and then:
    bitwise equal, the model routing, each chosen engine's kernel launched,
    the race's cost log replayed green), then the serving registry's
    sparse-4M and hub-1M routed through the tuned policy; one
-   ``{"tune": ...}`` line.
+   ``{"tune": ...}`` line;
+11. the paper's tables and the SSSP examples (:func:`paper_phase`), in
+   their own launch window: ``repro_torch.examples`` ``quickstart``,
+   ``sssp_pipeline`` (n = 100,000, m = 3n, the sharded engines on an NCCL
+   group of one; and n = 2000, Table I's largest, for the engines that
+   hold the n × n matrix),
+   ``sssp_dynamic_demo`` and ``sssp_serve_demo`` with their own checks,
+   then ``repro_torch.benchmarks.run --quick --ranks-device cpu`` (its
+   P-rank sweeps cut to P ≤ 2 and Table III to n = 100,
+   :data:`PAPER_CUTS`) and
+   ``table2_sparse_csr --quick`` into a temporary directory, every CSV row
+   with finite times, ``ell_relax``, ``frontier_relax``, ``bucket_relax``
+   and ``relax_matvec`` launched by the pipeline; one ``{"paper": ...}``
+   line.
 
 It prints the card, the measured rates, one JSON line per CSR-kernel
 shape, per engine run, per dynamic batch size, per serve trace, per obs
 pass, per driver run and per graph's (and the target query's and the
 dynamic phase's) kernel launches, one ``{"kernels": ...}`` line
-(``launches`` summed over the five counted windows, ``launches_by_path``
+(``launches`` summed over the six counted windows, ``launches_by_path``
 split), and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line; so does a machine
 without a CUDA GPU.
@@ -168,9 +181,9 @@ SERVE_LANDMARKS = 8
 SERVE_MAX_BATCH = 16
 SERVE_CACHE_ROWS = 64
 SERVE_OVERLAY = 512
-SERVE_QUERIES = 256
+SERVE_QUERIES = 128
 SERVE_RATE = 2000.0
-CHURN_EVENTS = 128
+CHURN_EVENTS = 64
 #: the kernel each kernel engine launches
 KERNEL_OF = {"bellman_csr_kernel": "ell_relax",
              "frontier_kernel": "frontier_relax",
@@ -1551,6 +1564,133 @@ def tune_phase(handles: dict, device, wrappers: dict, lines: list) -> None:
         large_graphs=routes)})
 
 
+#: the pipeline example's two runs: at n = 100,000 (m = 3n) every CSR
+#: engine, the sharded ones on an NCCL group of one; the engines that hold
+#: the n × n matrix stop at its DENSE_CAP (40 GB and minutes of Alg. 2
+#: here), so a second run at n = 2000 (Table I's largest) drives them,
+#: relax_matvec with them
+PIPELINE_RUNS = ((100_000, 300_000), (2000, 6000))
+#: the quick benches' P-rank sweeps, cut here: (module, constant, the
+#: slice of it kept).  Every P-rank leg starts sssp_run afresh (≈ 7 s of
+#: process start on the card machine's host), and Table III's n = 1000
+#: legs hold Alg. 2 on 8 gloo ranks for ≈ 20 s a solve, so the quick run's
+#: 30 legs take ≈ 20 min there.  Kept: P = 1 and 2 of Table IV and of weak
+#: scaling (each efficiency a real ratio) and Table III's n = 100 pair (its
+#: density ratio); the tables' full numbers come from ``benchmarks.run`` on
+#: its own (PERF.md §5)
+PAPER_CUTS = (("table3_density", "PAIRS", slice(2, 4)),
+              ("table4_scaling", "PROCS", slice(0, 2)),
+              ("weak_scaling", "PROCS", slice(0, 2)))
+#: the paper benches' CSVs: (file, its time columns)
+PAPER_CSVS = {
+    "table2_sparse_csr.csv": ("bellman_s", "bellman_csr_s"),
+    "table3_density.csv": ("serial_s", "mpi8_s", "bellman_s"),
+    "table4_scaling.csv": ("time_s",),
+    "fig23_size_sweep.csv": ("serial_s", "bellman_s"),
+    "multisource_amortization.csv": ("total_s", "per_source_s"),
+    "weak_scaling.csv": ("time_s",),
+}
+
+
+def paper_phase(device, wrappers: dict, lines: list) -> None:
+    """The paper's tables and the SSSP examples from the port, on the card:
+    ``quickstart``; ``sssp_pipeline`` for each of :data:`PIPELINE_RUNS`
+    (every engine within ``VERIFY_RTOL`` of scipy, and ``ell_relax``,
+    ``frontier_relax``, ``bucket_relax`` and ``relax_matvec`` launched by
+    the two runs); ``sssp_dynamic_demo`` and ``sssp_serve_demo`` (their
+    own bitwise checks against ``serial``); then ``benchmarks.run --quick
+    --ranks-device cpu`` (the MPI columns on gloo ranks on the host, the
+    rest on the card; the sweeps cut by :data:`PAPER_CUTS`) and
+    ``table2_sparse_csr --quick`` into a temporary CSV directory, every
+    row of every CSV with finite times.  A failed
+    example or bench fails the run.  Appends one ``{"paper": ...}`` line:
+    seconds by step, Table III's times at its largest n run, the
+    efficiencies of Table IV and weak scaling at P > 1 (P = 1 is their
+    base, 100 by construction), the pipelines' launches and walls."""
+    import csv
+    import importlib
+    import math
+    import tempfile
+
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import run as paper_run
+    from repro_torch.benchmarks import table2_sparse_csr
+    from repro_torch.examples import (quickstart, sssp_dynamic_demo,
+                                      sssp_pipeline, sssp_serve_demo)
+    from repro_torch.launch.sssp_run import VERIFY_RTOL
+
+    dev = str(device)
+    secs = {}
+    _, secs["quickstart"] = timed(lambda: quickstart.main(["--device", dev]))
+    before = launch_counts(wrappers)
+    pipelines = []
+    for n, m in PIPELINE_RUNS:
+        summary, wall = timed(lambda: sssp_pipeline.main(
+            ["--nodes", str(n), "--edges", str(m), "--device", dev]))
+        secs[f"sssp_pipeline_{n}"] = wall
+        for engine, r in summary["engines"].items():
+            check(r["max_rel_err"] <= VERIFY_RTOL,
+                  f"pipeline n={n} {engine}: relative error "
+                  f"{r['max_rel_err']} > {VERIFY_RTOL}")
+        pipelines.append(dict(
+            n=n, m=m, nnz=summary["nnz"], skipped=sorted(summary["skipped"]),
+            walls={e: r["time_s"] for e, r in summary["engines"].items()},
+            max_rel_err=max(r["max_rel_err"]
+                            for r in summary["engines"].values())))
+    moved = launches_since(wrappers, before)
+    for k in ("ell_relax", "frontier_relax", "bucket_relax", "relax_matvec"):
+        check(moved.get(k, 0) > 0, f"{k} was not launched by sssp_pipeline")
+    _, secs["sssp_dynamic_demo"] = timed(
+        lambda: sssp_dynamic_demo.main(["--device", dev]))
+    _, secs["sssp_serve_demo"] = timed(
+        lambda: sssp_serve_demo.main(["--device", dev]))
+    prev = [(common, "OUT_DIR", common.OUT_DIR)]
+    kept = {}
+    for mod_name, name, keep in PAPER_CUTS:
+        mod = importlib.import_module(f"repro_torch.benchmarks.{mod_name}")
+        prev.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, getattr(mod, name)[keep])
+        kept[f"{mod_name}.{name}"] = list(getattr(mod, name))
+    with tempfile.TemporaryDirectory() as out_dir:
+        common.OUT_DIR = out_dir
+        try:
+            rc, secs["run_quick"] = timed(lambda: paper_run.main(
+                ["--quick", "--device", dev, "--ranks-device", "cpu"]))
+            check(rc == 0, f"benchmarks.run --quick exited {rc}")
+            _, secs["table2_quick"] = timed(
+                lambda: table2_sparse_csr.run(True, device=dev))
+            tables = {}
+            for name, cols in PAPER_CSVS.items():
+                with open(Path(out_dir) / name) as f:
+                    rows = list(csv.DictReader(f))
+                check(bool(rows), f"{name}: no rows")
+                for row in rows:
+                    for c in cols:
+                        check(math.isfinite(float(row[c])),
+                              f"{name}: {c} = {row[c]!r} in {row}")
+                tables[name] = rows
+        finally:
+            for mod, name, value in prev:
+                setattr(mod, name, value)
+    t3 = tables["table3_density.csv"]
+    top = max(int(r["nodes"]) for r in t3)
+    lines.append({"paper": dict(
+        seconds=secs, phase_s=sum(secs.values()),
+        kept=kept,
+        table3_largest_n=[
+            {k: float(r[k]) if k.endswith("_s") else int(r[k])
+             for k in r} for r in t3 if int(r["nodes"]) == top],
+        table3_columns=dict(serial_s=dev, bellman_s=dev,
+                            mpi8_s="8 gloo ranks on the host"),
+        table4_efficiency_pct={
+            f"{r['engine']}@{r['procs']}": float(r["efficiency_pct"])
+            for r in tables["table4_scaling.csv"] if int(r["procs"]) > 1},
+        weak_efficiency_pct={
+            f"{r['engine']}@{r['procs']}": float(r["weak_efficiency_pct"])
+            for r in tables["weak_scaling.csv"] if int(r["procs"]) > 1},
+        pipelines=pipelines, pipeline_launches=moved)})
+
+
 def serial_check(device) -> dict:
     """The paper's Alg. 1 on the device against bellman_csr, bitwise."""
     from repro_torch.core.csr import sparse_csr_graph
@@ -1684,7 +1824,8 @@ def main() -> int:
                 ("tune", lambda: tune_phase(
                     {name: registry.get(name)
                      for name in ("sparse-4M", "hub-1M")},
-                    device, wrappers, lines))):
+                    device, wrappers, lines)),
+                ("paper", lambda: paper_phase(device, wrappers, lines))):
             t0 = time.perf_counter()
             torch.cuda.synchronize()
             for fn in wrappers.values():
@@ -1711,12 +1852,12 @@ def main() -> int:
         dict(name=k, route="cuda", source=KERNELS[k][0],
              replaces=KERNELS[k][1],
              launches=(launches[k] + sharded[k] + served[k]
-                       + windows["drivers"][k] + windows["tune"][k]),
+                       + sum(w[k] for w in windows.values())),
              launches_by_path={"csr_dynamic_dense": launches[k],
                                "sharded": sharded[k],
                                "serve": served[k],
-                               "drivers": windows["drivers"][k],
-                               "tune": windows["tune"][k]}, **kern[k])
+                               **{path: w[k] for path, w in windows.items()}},
+             **kern[k])
         for k in KERNELS]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

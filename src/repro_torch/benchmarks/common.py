@@ -1,17 +1,28 @@
-"""Shared benchmark helpers: the timing envelope, the device stamp and the
-cost-record capture of ``--cost-out``."""
+"""Shared benchmark helpers: the timing envelope, the device stamp, the
+cost-record capture of ``--cost-out``, and for the paper's tables the CSV
+writer and the P-rank runner (the MPI ``-np`` analogue)."""
 from __future__ import annotations
 
 import contextlib
+import csv
+import json
+import os
 import platform
 import subprocess
+import sys
 import time
 from pathlib import Path
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core._dist import BACKEND_OF, check_gpus
+
 REPO = Path(__file__).resolve().parents[3]
+SRC = REPO / "src"
+#: where the paper's table and figure benches write their CSVs (ignored by
+#: git; the JAX package writes experiments/bench/)
+OUT_DIR = str(REPO / "experiments" / "bench_torch")
 
 
 def time_engine(fn: Callable, *, repeats: int = 3, device=None) -> float:
@@ -86,3 +97,50 @@ def capture_costs(path: Optional[str]):
         raise SystemExit(f"cost records invalid: {errs[:5] or 'none'}")
     log.write_jsonl(path)
     print(f"wrote {len(log.records)} cost records to {path}")
+
+
+def write_csv(name: str, header: list[str], rows: list[list],
+              meta: Optional[dict] = None) -> str:
+    """Write ``rows`` under ``header`` to ``OUT_DIR/name`` and return the
+    path.  With ``meta`` (what the columns ran on), also write it beside
+    the CSV as ``<stem>.meta.json``; the CSV itself stays the JAX
+    package's format."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, name)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows(rows)
+    if meta is not None:
+        with open(os.path.splitext(path)[0] + ".meta.json", "w") as f:
+            json.dump(meta, f, indent=1)
+    return path
+
+
+def ranks_label(procs, ranks_device) -> str:
+    """How a P-rank column ran, e.g. ``8 gloo ranks on cpu``."""
+    kind = torch.device(ranks_device).type
+    return f"{procs} {BACKEND_OF[kind]} ranks on {kind}"
+
+
+def run_with_procs(args: list[str], procs: int, device,
+                   timeout: int = 900) -> str:
+    """Run ``python -m repro_torch.launch.sssp_run --procs P --device D``
+    with ``args`` in a subprocess and return its stdout (the P-rank
+    analogue of the JAX package's forced-device runs): gloo ranks on the
+    host for ``device`` "cpu", NCCL with one GPU a rank for "cuda".  P
+    ranks on CUDA with fewer than P GPUs raise before anything starts; a
+    run that exits non-zero raises with its stdout and stderr."""
+    if torch.device(device).type == "cuda":
+        check_gpus(procs)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.sssp_run", *args,
+         "--procs", str(procs), "--device", str(device)],
+        capture_output=True, text=True, env=env, timeout=timeout)
+    if r.returncode != 0:
+        raise RuntimeError(f"sssp_run {' '.join(args)} --procs {procs} "
+                           f"--device {device} failed:\n{r.stdout}\n"
+                           f"{r.stderr}")
+    return r.stdout

@@ -23,8 +23,9 @@ P = 1 on the card: NCCL refuses two ranks on one GPU.
 
     results = spawn(fn, 4, backend="gloo", store_dir=tmp, args=(cg,))
 
-:func:`spawn` runs ``fn(group, *args)`` on P fresh processes and returns
-their results by rank.
+:func:`spawn` runs ``fn(group, *args)`` on P new processes (spawned, or
+forked for gloo ranks of a process that has run no torch operation) and
+returns their results by rank.
 """
 from __future__ import annotations
 
@@ -125,6 +126,14 @@ def check_backend(backend: str, device) -> torch.device:
     return dev
 
 
+def check_gpus(nprocs: int) -> None:
+    """Raise ``RuntimeError`` unless there is a GPU for each of ``nprocs``
+    NCCL ranks (one GPU a rank; nothing moves to the CPU instead)."""
+    if torch.cuda.device_count() < nprocs:
+        raise RuntimeError(f"an NCCL group of {nprocs} needs {nprocs} GPUs, "
+                           f"{torch.cuda.device_count()} present")
+
+
 def open_group(rank: int, size: int, *, backend: str, device, store_dir,
                timeout: float = DEFAULT_TIMEOUT) -> ShardGroup:
     """Join rank ``rank`` of a group of ``size`` through the file store in
@@ -158,21 +167,28 @@ def _rank_main(fn, rank, size, backend, store_dir, args, results, timeout):
 
 
 def spawn(fn, nprocs: int, *, backend: str, store_dir, args=(),
-          timeout: float = DEFAULT_TIMEOUT) -> list:
-    """Run ``fn(group, *args)`` on ``nprocs`` fresh processes (the spawn
-    start method), rank r on ``cuda:r`` for NCCL or on the CPU for gloo,
-    and return the results by rank.  ``fn``, ``args`` and the results are
-    pickled, so ``fn`` is a module-level function.  Raises
+          timeout: float = DEFAULT_TIMEOUT,
+          start_method: str = "spawn") -> list:
+    """Run ``fn(group, *args)`` on ``nprocs`` new processes, rank r on
+    ``cuda:r`` for NCCL or on the CPU for gloo, and return the results by
+    rank.  ``fn``, ``args`` (when spawned) and the results are pickled,
+    so ``fn`` is a module-level function.  ``start_method`` "fork" skips
+    each rank's import of torch; it is for gloo ranks of a process that
+    has run no torch operation yet (a forked child inherits the parent's
+    thread pools half-made), and NCCL ranks always spawn.  Raises
     ``RuntimeError`` with the traceback if a rank raises or exits without a
     result, or if the group is not done within ``timeout`` seconds; every
     rank is stopped before it returns or raises."""
-    if backend == "nccl" and torch.cuda.device_count() < nprocs:
-        raise RuntimeError(f"an NCCL group of {nprocs} needs {nprocs} GPUs, "
-                           f"{torch.cuda.device_count()} present")
+    if start_method not in ("spawn", "fork") or (
+            backend == "nccl" and start_method != "spawn"):
+        raise ValueError(f"start method {start_method!r} for {backend} "
+                         f"ranks; NCCL ranks spawn, gloo ranks spawn or fork")
+    if backend == "nccl":
+        check_gpus(nprocs)
     check_backend(backend, "cpu" if backend == "gloo" else "cuda:0")
     os.makedirs(store_dir, exist_ok=True)
     run_dir = tempfile.mkdtemp(prefix="group-", dir=store_dir)
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context(start_method)
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, nprocs, backend, run_dir, args, results,

@@ -31,6 +31,10 @@ import numpy as np
 #: float32 vs float64 path sums: each of <= 4096 additions on a path rounds
 #: by at most 2**-24 of the running sum.
 VERIFY_RTOL = 4096 * 2.0 ** -24
+#: seconds the spawned group may take, its solves included (and one
+#: collective at most): Alg. 2 on 16 gloo ranks sharing 8 cores takes
+#: minutes at the paper's n = 2048
+GROUP_TIMEOUT = 900.0
 
 
 def scipy_distances(cg, sources) -> np.ndarray:
@@ -67,7 +71,11 @@ def _rank_solve(group, g, source, engine, repeats, kw):
     return solve_timed(g, source, engine, group.device, repeats, group, **kw)
 
 
-def main(argv=None):
+def main(argv=None, *, fork_cpu_ranks: bool = False):
+    """Parse ``argv`` and run.  ``fork_cpu_ranks`` forks gloo ranks instead
+    of spawning them, which skips each rank's import of torch (seconds a
+    rank); it is for a process that has run no torch operation yet, as
+    this module run as a program has not.  NCCL ranks always spawn."""
     import tempfile
 
     import torch
@@ -105,6 +113,11 @@ def main(argv=None):
                     help="the paper's -w flag (random corpus)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--verify", action="store_true")
+    ap.add_argument("--save", default=None, metavar="PATH",
+                    help="write the last solve's dist (and pred, where the "
+                         "engine gives one) to PATH as an .npz, so a caller "
+                         "can hold the answers of a --procs run, whose ranks "
+                         "are other processes, against another solver")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -140,7 +153,9 @@ def main(argv=None):
             times, res = spawn(_rank_solve, args.procs,
                                backend=BACKEND_OF[dev.type], store_dir=store,
                                args=(g, source, args.engine, args.repeats,
-                                     kw))[0]
+                                     kw), timeout=GROUP_TIMEOUT,
+                               start_method="fork" if fork_cpu_ranks
+                               and dev.type == "cpu" else "spawn")[0]
     else:
         times, res = solve_timed(g, source, args.engine, dev, args.repeats,
                                  **kw)
@@ -151,6 +166,10 @@ def main(argv=None):
           + (f" sweeps={res.sweeps}" if res.sweeps is not None else "")
           + (f" edges_relaxed={res.edges_relaxed}"
              if res.edges_relaxed is not None else ""))
+
+    if args.save:
+        np.savez(args.save, dist=res.dist,
+                 **({} if res.pred is None else {"pred": res.pred}))
 
     if args.verify:
         ref = scipy_distances(cg, np.atleast_1d(source))
@@ -165,4 +184,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    main(fork_cpu_ranks=True)

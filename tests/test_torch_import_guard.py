@@ -11,6 +11,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+#: the paper's tables and figures and the SSSP examples
+PAPER_MODULES = tuple(
+    [f"benchmarks.{m}" for m in ("table2_sparse_csr", "fig23_size_sweep",
+                                 "table3_density", "table4_scaling",
+                                 "weak_scaling", "run",
+                                 "make_experiments_md")]
+    + [f"examples.{m}" for m in ("quickstart", "sssp_pipeline",
+                                 "sssp_dynamic_demo", "sssp_serve_demo")])
 
 
 def _env():
@@ -28,12 +36,16 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
-        "print(bad)\n")
+        "print(bad)\n"
+        "print(sorted(k for k in sys.modules if k.startswith("
+        "('repro_torch.examples.', 'repro_torch.benchmarks.'))))\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")
-    assert int(out[0]) >= 67                   # every module was imported
+    assert int(out[0]) >= 79                   # every module was imported
     assert out[1] == "[]"
+    for name in PAPER_MODULES:
+        assert f"'repro_torch.{name}'" in out[2], name
 
 
 def _imported_roots(path: Path):
@@ -49,6 +61,8 @@ def _imported_roots(path: Path):
 def test_no_source_file_imports_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
+    for name in PAPER_MODULES:
+        assert PKG / (name.replace(".", "/") + ".py") in files, name
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, f

@@ -525,6 +525,16 @@ def test_spawn_collectives_and_failures(tmp_path):
               timeout=TIMEOUT)
 
 
+def test_spawn_refuses_other_start_methods(tmp_path):
+    # forked gloo ranks run through sssp_run as a program (the paper
+    # benches' legs, tests/test_torch_paper_benches.py); never fork here,
+    # from a process whose torch thread pools are running
+    for backend, method in (("nccl", "fork"), ("gloo", "forkserver")):
+        with pytest.raises(ValueError, match="start method"):
+            spawn(_collectives_rank, 1, backend=backend, store_dir=tmp_path,
+                  start_method=method)
+
+
 def test_backend_must_carry_the_device(tmp_path):
     with pytest.raises(ValueError, match="gloo"):
         open_group(0, 1, backend="nccl", device="cpu", store_dir=tmp_path)
