@@ -79,20 +79,34 @@ the kernels' operation bounds use them) and then:
    through the port's ``validate`` (the CLI for the replay's), every cost
    record stamped ``"gpu"`` and the card's name, and traced against
    untraced walls (printed, not gated);
-9. the serving drivers (:func:`drivers_phase`), in their own launch
+9. sharded serving (:func:`sharded_serve_phase`), in its own launch
+   window: a serving group of 4 gloo ranks sharing the card (this
+   process the leader, three spawned followers; gloo carries their CUDA
+   tensors, NCCL refuses two ranks on one GPU), its registry holding
+   sparse-4M at full width, staged as one 1M-row block a rank, and hub-1M
+   below the shard threshold, served single-device; the serve phase's Zipf
+   and point-to-point traces replayed through one scheduler in open loop,
+   then 4 lone p2p queries on sparse-4M (``frontier_sharded`` to its
+   fixpoint, ``frontier_relax`` on every rank); every exact answer bitwise
+   equal to a fresh ``frontier_kernel`` row, one source against scipy; the
+   followers' kernel launches read through the group's ``STATS`` command
+   and counted under the path ``sharded_serve``; then ``sssp_serve --smoke
+   --devices 4 --shard-threshold 128 --shared-card``; one
+   ``{"sharded_serve": ...}`` line a trace;
+10. the serving drivers (:func:`drivers_phase`), in their own launch
    window: ``repro_torch.launch.sssp_serve`` at ``--smoke`` (checked
    against ``serial``), at its defaults (checked against fresh
    ``frontier_kernel`` rows, each held to scipy) and ``--chaos --smoke``,
    and ``repro_torch.launch.sssp_dynamic --smoke``, all ``--device
    cuda``; one ``{"driver": ...}`` line a run;
-10. self-tuning (:func:`tune_phase`), in its own launch window: a
+11. self-tuning (:func:`tune_phase`), in its own launch window: a
    calibration over the full grid, the fitted model, and the threshold
    policy raced against ``TunedPolicy`` on tune_bench's full legs (answers
    bitwise equal, the model routing, each chosen engine's kernel launched,
    the race's cost log replayed green), then the serving registry's
    sparse-4M and hub-1M routed through the tuned policy; one
    ``{"tune": ...}`` line;
-11. the paper's tables and the SSSP examples (:func:`paper_phase`), in
+12. the paper's tables and the SSSP examples (:func:`paper_phase`), in
    their own launch window: ``repro_torch.examples`` ``quickstart``,
    ``sssp_pipeline`` (n = 100,000, m = 3n, the sharded engines on an NCCL
    group of one; and n = 2000, Table I's largest, for the engines that
@@ -110,7 +124,7 @@ It prints the card, the measured rates, one JSON line per CSR-kernel
 shape, per engine run, per dynamic batch size, per serve trace, per obs
 pass, per driver run and per graph's (and the target query's and the
 dynamic phase's) kernel launches, one ``{"kernels": ...}`` line
-(``launches`` summed over the six counted windows, ``launches_by_path``
+(``launches`` summed over the seven counted windows, ``launches_by_path``
 split), and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line; so does a machine
 without a CUDA GPU.
@@ -184,6 +198,13 @@ SERVE_OVERLAY = 512
 SERVE_QUERIES = 128
 SERVE_RATE = 2000.0
 CHURN_EVENTS = 64
+#: the sharded serving phase: P gloo ranks sharing the card, a shard
+#: threshold between its two graphs (sparse-4M shards, hub-1M does not),
+#: each trace's length and the lone p2p queries served after the traces
+SHARDED_SERVE_P = 4
+SHARDED_SERVE_THRESHOLD = 2_000_000
+SHARDED_SERVE_QUERIES = 64
+SHARDED_SERVE_LONE_P2P = 4
 #: the kernel each kernel engine launches
 KERNEL_OF = {"bellman_csr_kernel": "ell_relax",
              "frontier_kernel": "frontier_relax",
@@ -1456,6 +1477,157 @@ DRIVER_RUNS = (
 )
 
 
+def follower_launches(sg) -> dict:
+    """The kernel launches of a serving group's followers (ranks 1..P-1),
+    summed by kernel, through its ``STATS`` command."""
+    total: dict = {}
+    for r in sg.stats()[1:]:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def sharded_serve_phase(big: dict, small: dict, device, wrappers: dict,
+                        lines: list) -> dict:
+    """Sharded serving on the card: a serving group of
+    :data:`SHARDED_SERVE_P` gloo ranks sharing it (this process the
+    leader, the others spawned; gloo carries their CUDA tensors), its
+    ``GraphRegistry`` holding ``big`` (name -> CsrGraph, at or above the
+    shard threshold: staged as one block a rank) and ``small`` (below it:
+    served single-device), one scheduler replaying the serve phase's Zipf
+    (seed 0) and point-to-point (seed 1) traces over both in open loop,
+    then :data:`SHARDED_SERVE_LONE_P2P` lone p2p queries on ``big`` (the
+    sharded ``frontier_sharded`` full solve, through ``frontier_relax`` on
+    every rank).  Every exact answer is held bitwise to a fresh
+    ``frontier_kernel`` row, one source of ``big`` to scipy.  Then
+    ``sssp_serve --smoke`` on the same kind of ranks.  One
+    ``{"sharded_serve": ...}`` line a trace; returns the followers' kernel
+    launches of the phase (the leader's are in ``wrappers``)."""
+    import numpy as np
+
+    from repro_torch.core._dist import open_serving_group
+    from repro_torch.launch import sssp_serve
+    from repro_torch.launch.sssp_serve import Verifier, replay
+    from repro_torch.serve import (DispatchPolicy, DistanceCache,
+                                   GraphRegistry, LatencyRecorder,
+                                   MicroBatchScheduler, TraceEvent,
+                                   make_trace)
+
+    (bname, bcg), = big.items()
+    graphs = {**big, **small}
+    sizes = [(name, cg.n) for name, cg in graphs.items()]
+    traces = {"zipf": make_trace("zipf", sizes,
+                                 num_queries=SHARDED_SERVE_QUERIES,
+                                 rate=SERVE_RATE, seed=0),
+              "p2p": make_trace("p2p", sizes,
+                                num_queries=SHARDED_SERVE_QUERIES,
+                                rate=SERVE_RATE, seed=1)}
+    sg = open_serving_group(SHARDED_SERVE_P, device=device, shared=True)
+    where = f"{SHARDED_SERVE_P} gloo ranks sharing {device}"
+    try:
+        before = follower_launches(sg)
+        policy = DispatchPolicy(shard_threshold=SHARDED_SERVE_THRESHOLD,
+                                device=device, group=sg)
+        registry = GraphRegistry(device=device, group=sg)
+        for name, cg in graphs.items():
+            registry.register(name, cg)
+        check(policy.choose(registry.get(bname), kind="batch").sharded
+              and not any(policy.choose(registry.get(n)).sharded
+                          for n in small),
+              "the threshold does not split the graphs")
+        h = registry.get(bname)
+        t0 = time.perf_counter()
+        h.partition_ops(sg.size)
+        stage_s = time.perf_counter() - t0
+        per_rank = [r["staged_bytes"] for r in sg.stats()]
+        cache = DistanceCache(capacity=SERVE_CACHE_ROWS)
+        sched = MicroBatchScheduler(registry, cache,
+                                    max_batch=SERVE_MAX_BATCH,
+                                    dispatch=policy)
+        verify = Verifier(registry, reference="frontier_kernel",
+                          device=device)
+
+        def frontier_edges(sources) -> float:
+            """``frontier_kernel``'s edges_relaxed a source, its launches
+            taken back out (a yardstick, not serving)."""
+            counts = launch_counts(wrappers)
+            edges = [run_engine(bcg, int(v), "frontier_kernel",
+                                device)[0].edges_relaxed for v in sources]
+            for k, fn in wrappers.items():
+                fn.launches = counts[k]
+            return sum(edges) / len(edges)
+
+        def serve(label, events, extra=None):
+            s0, coll0 = sched.stats(), sg.group.collectives
+            exact0 = verify.exact
+            answers, wall, paused = replay(sched, events, verify)
+            s1 = sched.stats()
+            rec = LatencyRecorder()
+            for a in answers:
+                rec.observe(a, a.done_at)
+            d = {k: s1[k] - s0[k] for k in (
+                "sharded_batches", "sharded_p2p", "sharded_sources",
+                "sharded_edges", "engine_batches", "target_solves")}
+            srcs = sorted({a.query.source for a in answers
+                           if a.query.graph == bname})[:4]
+            lines.append(dict(
+                sharded_serve=label, ranks=where, backend=sg.backend,
+                P=sg.size, graph=bname, n=bcg.n, m=bcg.nnz,
+                single_device=list(small), queries=len(answers), **d,
+                edges_per_source=(d["sharded_edges"] / d["sharded_sources"]
+                                  if d["sharded_sources"] else None),
+                frontier_edges_per_source=frontier_edges(srcs),
+                wall_s=wall, verify_s=paused, latency=rec.summary(),
+                answered_via={k: v - s0["answered_via"][k]
+                              for k, v in s1["answered_via"].items()
+                              if v > s0["answered_via"][k]},
+                exact_checked=verify.exact - exact0,
+                staged_bytes_per_rank=per_rank,
+                stage_s=stage_s, collectives=sg.group.collectives - coll0,
+                group_start_s=sg.start_s, **(extra or {})))
+            return answers
+
+        for trace, events in traces.items():
+            serve(trace, events)
+        # lone p2p queries on the sharded graph: an idle scheduler solves
+        # each one alone, frontier_sharded to its full fixpoint
+        cached = {k[-1] for k in cache.keys_for(bname)}
+        cands = [v for v in range(7, bcg.n, bcg.n // 64) if v not in cached]
+        for src in cands[:SHARDED_SERVE_LONE_P2P]:
+            answers = serve("p2p_residue", [TraceEvent(
+                0.0, bname, src, (src * 7919) % bcg.n)])
+            check([a.via for a in answers] == ["target"],
+                  f"lone sharded p2p answered via {answers[0].via}")
+        totals = {k: sched.stats()[k] for k in ("sharded_batches",
+                                                "sharded_p2p")}
+        check(totals["sharded_batches"] >= 2 and totals["sharded_p2p"] >= 4,
+              f"sharded serving ran {totals}")
+        version, src, cg = verify.first[bname]
+        rel = check_oracle(f"sharded serve {bname} source {src}",
+                           verify.rows[bname, version, src],
+                           oracle(cg, [src]))
+        lines.append(dict(oracle="scipy.sparse.csgraph.dijkstra",
+                          graph=f"{bname} (sharded serve)", source=src,
+                          max_rel_err=rel))
+        after = follower_launches(sg)
+        check(sg.broken is None, f"serving group: {sg.broken}")
+    finally:
+        sg.close()
+    followers = {k: after.get(k, 0) - before.get(k, 0) for k in wrappers}
+    argv = ["--smoke", "--devices", str(SHARDED_SERVE_P),
+            "--shard-threshold", "128", "--shared-card", "--device",
+            str(device)]
+    report, wall = timed(lambda: sssp_serve.main(argv))
+    check(all(r["sharded_sources"] > 0 for r in report.values()),
+          "sssp_serve --devices did not shard")
+    lines.append(dict(driver=f"sssp_serve {' '.join(argv)}", wall_s=wall,
+                      scenarios={scen: {k: r[k] for k in (
+                          "queries", "verified_rows", "exact_checked",
+                          "sharded_batches", "sharded_p2p",
+                          "sharded_sources")} for scen, r in report.items()}))
+    return followers
+
+
 def drivers_phase(device, wrappers: dict, lines: list) -> None:
     """The serving drivers on the card, in process, each with ``--device
     cuda``: every run of :data:`DRIVER_RUNS`; a mismatch exits the run
@@ -1817,6 +1989,24 @@ def main() -> int:
                   {e: walls["sparse", e] for e in SINGLE_ENGINES}, zipf_wall,
                   device, wrappers, lines)
         lines.append({"obs_phase_s": time.perf_counter() - t0})
+        # sharded serving on ranks sharing the card: its own window, the
+        # followers' launches read through the group's STATS
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        followers = sharded_serve_phase(
+            {"sparse-4M": graphs["sparse"]}, {"hub-1M": graphs["hub"]},
+            device, wrappers, lines)
+        torch.cuda.synchronize()
+        sharded_serve = {k: fn.launches + followers[k]
+                         for k, fn in wrappers.items()}
+        check(sharded_serve["frontier_relax"] > 0
+              and followers["frontier_relax"] > 0,
+              "frontier_relax was not launched on the sharded serving "
+              "ranks")
+        lines.append({"sharded_serve_phase_s": time.perf_counter() - t0,
+                      "followers_launches": followers})
         # the serving drivers, then self-tuning: a launch window each
         windows = {}
         for path, run in (
@@ -1852,10 +2042,12 @@ def main() -> int:
         dict(name=k, route="cuda", source=KERNELS[k][0],
              replaces=KERNELS[k][1],
              launches=(launches[k] + sharded[k] + served[k]
+                       + sharded_serve[k]
                        + sum(w[k] for w in windows.values())),
              launches_by_path={"csr_dynamic_dense": launches[k],
                                "sharded": sharded[k],
                                "serve": served[k],
+                               "sharded_serve": sharded_serve[k],
                                **{path: w[k] for path, w in windows.items()}},
              **kern[k])
         for k in KERNELS]}))

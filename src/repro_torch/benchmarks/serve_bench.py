@@ -33,12 +33,20 @@ stays <= 2x the deadline.
 ``--obs`` adds the tracing-overhead leg: ``gate_obs`` asks traced steady
 Zipf throughput >= 0.9x untraced (best of paired drains).
 
-``--devices P > 1`` (JAX's sharded leg and ``gate_sharded``) raises
-``NotImplementedError``: serving from the sharded engines comes with
-ROADMAP A.11b.
+``--devices P`` (default 1) adds the SHARDED serving leg: the same Zipf
+replay on a larger graph routed through the vertex-partitioned engines on
+a serving group of P ranks (core/_dist.open_serving_group: gloo ranks on
+the CPU, NCCL ranks one GPU each, or with ``--shared-card`` gloo ranks all
+on the one card) against the single-device serve stack on the same graph
+and device type.  Its ``gate_sharded`` (JAX's rule) asserts the
+union-frontier engine relaxes STRICTLY fewer edges per solved source than
+per-query single-device ``frontier`` solves, and at n >= 20000
+additionally that sharded steady-state throughput >= 1.0x the
+single-device route; smoke corpora record the ratio without enforcing it.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.serve_bench [--smoke]
-        [--device cuda|cpu] [--overload] [--obs] [--out PATH]
+        [--device cuda|cpu] [--devices P [--shared-card]] [--overload]
+        [--obs] [--out PATH]
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ import torch
 
 from repro_torch.benchmarks.common import REPO, device_meta
 from repro_torch.core import csr as C
-from repro_torch.core.api import refuse_sharded, resolve_device, shortest_paths
+from repro_torch.core.api import resolve_device, shortest_paths
 from repro_torch.serve import (DispatchPolicy, DistanceCache, GraphRegistry,
                                MicroBatchScheduler, SCENARIOS, make_trace)
 from repro_torch.serve.dispatch import engine_for
@@ -80,7 +88,7 @@ def _make_scheduler(cg, device, dispatch=None, **sched_kwargs):
     if dispatch is None:
         dispatch = DispatchPolicy(shard_threshold=None, nprocs=1,
                                   device=device)
-    registry = GraphRegistry(device=device)
+    registry = GraphRegistry(device=device, group=dispatch.group)
     cache = DistanceCache(capacity=CACHE_ROWS)
     sched = MicroBatchScheduler(registry, cache, max_batch=MAX_BATCH,
                                 dispatch=dispatch, **sched_kwargs)
@@ -150,6 +158,88 @@ def _verify(cg, answers, device):
         if not ok:
             raise SystemExit(
                 f"served answer mismatch vs serial: {q} via {a.via}")
+
+
+def _run_sharded(smoke: bool, devices: int, device, shared: bool = False):
+    """The --devices P leg: one Zipf cold+steady replay through the
+    sharded route on a serving group of P ranks vs the single-device route
+    on the same (larger) graph, plus the per-solve edge-work comparison
+    against fresh per-query ``frontier`` solves.  Returns (record,
+    gate_sharded)."""
+    from repro_torch.core._dist import open_serving_group
+
+    n = 1000 if smoke else 20000
+    queries = 120 if smoke else 400
+    verify = smoke or n <= 2000
+    cg = C.random_csr_graph(n, 3 * n, seed=n)
+    cold = make_trace("zipf", [("g", n)], num_queries=queries,
+                      rate=RATE, seed=7, hot_seed=13)
+    steady = make_trace("zipf", [("g", n)], num_queries=queries,
+                        rate=RATE, seed=8, hot_seed=13)
+
+    sched1 = _make_scheduler(cg, device)            # never-shard policy
+    _drain_timed(sched1, cold, cg, verify=False)
+    qps1, _ = _drain_timed(sched1, steady, cg, verify=False)
+
+    with open_serving_group(devices, device=device, shared=shared) as group:
+        shard_pol = DispatchPolicy(shard_threshold=n, nprocs=devices,
+                                   device=device, group=group)
+        schedP = _make_scheduler(cg, device, dispatch=shard_pol)
+        qpsP_cold, _ = _drain_timed(schedP, cold, cg, verify=verify)
+        qpsP, hitP = _drain_timed(schedP, steady, cg, verify=verify)
+        if group.broken is not None:
+            raise SystemExit(f"sharded leg: {group.broken}")
+        s = schedP.stats()
+        backend, start_s = group.backend, group.start_s
+    assert s["sharded_sources"] > 0, "sharded route never engaged"
+
+    # edge-work baseline: fresh single-device frontier solves, one per
+    # distinct trace source (what serving each query unbatched costs).
+    engine = engine_for("frontier", device)
+    srcs = sorted({e.source for e in cold + steady})
+    base = [shortest_paths(cg, src, engine=engine,
+                           device=device).edges_relaxed for src in srcs]
+    frontier_per_solve = sum(base) / len(base)
+    sharded_per_solve = s["sharded_edges"] / s["sharded_sources"]
+
+    rec = {
+        "scenario": "zipf-sharded", "n": n, "m": 3 * n,
+        "devices": shard_pol.nprocs, "backend": backend,
+        "shared_card": shared, "group_start_s": round(start_s, 3),
+        "queries_per_trace": queries,
+        "sharded_cold_qps": round(qpsP_cold, 2),
+        "sharded_steady_qps": round(qpsP, 2),
+        "single_steady_qps": round(qps1, 2),
+        "speedup_vs_single_steady": round(qpsP / qps1, 3),
+        "steady_cache_hit_rate": round(hitP, 4),
+        "sharded_batches": s["sharded_batches"],
+        "sharded_p2p": s["sharded_p2p"],
+        "sharded_sources": s["sharded_sources"],
+        "sharded_edges_per_solve": round(sharded_per_solve, 1),
+        "frontier_edges_per_solve": round(frontier_per_solve, 1),
+        "verified_bitwise": verify,
+    }
+    print(f"  sharded  n={n} P={shard_pol.nprocs} ({backend}): cold "
+          f"{qpsP_cold:8.1f} / steady {qpsP:8.1f} q/s, single-device steady "
+          f"{qps1:7.1f} q/s ({rec['speedup_vs_single_steady']:.2f}x) | "
+          f"edges/solve {sharded_per_solve:.0f} vs frontier "
+          f"{frontier_per_solve:.0f}", flush=True)
+    enforce_ratio = n >= 20000
+    gate = {
+        "rule": ("sharded union-frontier serving relaxes strictly fewer "
+                 "edges per solved source than per-query frontier solves"
+                 + (f", and sharded steady-state Zipf throughput >= 1.0x "
+                    f"the single-device route at n={n}" if enforce_ratio
+                    else f" (throughput ratio recorded, not enforced below "
+                         f"the n=20000 crossover; n={n})")),
+        "speedup_vs_single_steady": rec["speedup_vs_single_steady"],
+        "min_ratio": 1.0,
+        "ratio_enforced": enforce_ratio,
+        "edges_ratio": round(sharded_per_solve / frontier_per_solve, 4),
+        "pass": bool(sharded_per_solve < frontier_per_solve
+                     and (not enforce_ratio or qpsP / qps1 >= 1.0)),
+    }
+    return rec, gate
 
 
 def _replay_open_loop(sched, events):
@@ -347,8 +437,7 @@ def _run_obs(smoke: bool, device, trace_out=None):
 
 def run(smoke: bool = False, out: str = DEFAULT_OUT, devices: int = 1,
         overload: bool = False, obs: bool = False, trace_out=None,
-        device="cuda") -> str:
-    refuse_sharded(devices, "serve_bench")
+        device="cuda", shared_card: bool = False) -> str:
     dev = resolve_device(device)
     n = 1000 if smoke else 10000
     queries = 120 if smoke else 400
@@ -421,6 +510,10 @@ def run(smoke: bool = False, out: str = DEFAULT_OUT, devices: int = 1,
         "results": records,
         "gate": gate,
     }
+    if devices > 1:
+        srec, sgate = _run_sharded(smoke, devices, dev, shared_card)
+        doc["sharded_results"] = [srec]
+        doc["gate_sharded"] = sgate
     if overload:
         orec, ogate = _run_overload(smoke, dev)
         doc["overload_results"] = [orec]
@@ -447,8 +540,11 @@ def main(argv=None) -> str:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--devices", type=int, default=1,
-                    help="ranks for the sharded leg; only 1 runs "
-                         "(sharded serving comes with ROADMAP A.11b)")
+                    help="ranks of the serving group for the sharded leg "
+                         "(1 = skip the leg)")
+    ap.add_argument("--shared-card", action="store_true",
+                    help="run the sharded leg's ranks all on the one card "
+                         "of --device, over gloo")
     ap.add_argument("--overload", action="store_true",
                     help="add the 2x-offered-load degraded-mode leg and "
                          "its shed-don't-collapse gate")
@@ -462,7 +558,8 @@ def main(argv=None) -> str:
     args = ap.parse_args(argv)
     return run(args.smoke, out=args.out, devices=args.devices,
                overload=args.overload, obs=args.obs,
-               trace_out=args.trace_out, device=args.device)
+               trace_out=args.trace_out, device=args.device,
+               shared_card=args.shared_card)
 
 
 if __name__ == "__main__":

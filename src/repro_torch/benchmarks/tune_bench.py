@@ -5,8 +5,13 @@ Races the two policies that can sit behind the one dispatch seam — the
 default size-threshold :class:`~repro_torch.serve.dispatch.DispatchPolicy`
 and the calibration-fitted :class:`~repro_torch.tune.select.TunedPolicy`,
 both for the bench's device — on the same ``engine="auto"`` entry point,
-per (corpus, n) leg at one device.  Each leg times both policies best-of-N
-under ``policy_override`` and records the engine + statics each one chose.
+per (corpus, n) leg at one device and, with ``--devices P``, again at P
+ranks.  Each leg times both policies best-of-N under ``policy_override``
+and records the engine + statics each one chose.  The P legs run SPMD on
+P spawned ranks (core/_dist.spawn: gloo ranks on the CPU, NCCL ranks one
+GPU each), both policies built on the ranks' group, so ``engine="auto"``
+routes a graph at or above the shard threshold to the sharded engines;
+rank 0 records.
 
 Gate (``gate_tune``): on the full corpora (n >= 10000) the model-selected
 engine+statics must NEVER be slower than the hard-coded choice by more
@@ -23,12 +28,12 @@ at least one leg).
 
 The calibration must come from the bench's backend (a ``TunedPolicy``
 refuses another): ``CALIBRATION_torch.json`` for the card, written by
-``python -m repro_torch.tune.calibrate``.  ``--devices P > 1`` (JAX's
-P = 4 legs) raises ``NotImplementedError``: they come with ROADMAP A.11b,
-with the sharded calibration.
+``python -m repro_torch.tune.calibrate`` (with ``--devices P`` for the
+sharded records the P legs can use).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.tune_bench [--smoke]
-        [--device cuda|cpu] [--calibration CALIBRATION_torch.json]
+        [--device cuda|cpu] [--devices P]
+        [--calibration CALIBRATION_torch.json]
         [--out BENCH_torch_tune.json] [--cost-out tune_costs.jsonl]
 """
 from __future__ import annotations
@@ -40,6 +45,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.benchmarks.common import REPO, device_meta, time_engine
 
@@ -100,15 +106,16 @@ def _effective_delta(cg, choice) -> Optional[float]:
 
 
 def _race_leg(cg, corpus: str, n: int, procs: int, model, *,
-              repeats: int, device) -> Dict[str, Any]:
-    """Time engine='auto' under each policy on one leg; returns the row."""
+              repeats: int, device, group=None) -> Dict[str, Any]:
+    """Time engine='auto' under each policy on one leg; returns the row.
+    With ``group`` (of ``procs`` ranks) every rank runs it alike."""
     from repro_torch.core.api import shortest_paths
     from repro_torch.obs import get_cost_log
     from repro_torch.serve.dispatch import DispatchPolicy, policy_override
     from repro_torch.tune.select import TunedPolicy
 
-    base_pol = DispatchPolicy(nprocs=procs, device=device)
-    tuned_pol = TunedPolicy(model, nprocs=procs, device=device)
+    base_pol = DispatchPolicy(nprocs=procs, device=device, group=group)
+    tuned_pol = TunedPolicy(model, nprocs=procs, device=device, group=group)
     walls: Dict[str, float] = {}
     dists: Dict[str, np.ndarray] = {}
     choices: Dict[str, Dict[str, Any]] = {}
@@ -125,7 +132,7 @@ def _race_leg(cg, corpus: str, n: int, procs: int, model, *,
 
             def solve():
                 res_box["res"] = shortest_paths(cg, 0, engine="auto",
-                                                device=device)
+                                                device=device, group=group)
 
             # warm outside time_engine (on the card the first call of a
             # kernel builds it) and drop the cost records it emitted — the
@@ -200,20 +207,58 @@ def _gate_tune(rows: List[Dict[str, Any]], *, smoke: bool,
     return {"rule": rule, "points": points, "pass": bool(ok)}
 
 
+def _race_rank(group, model, legs, repeats: int, cost_log: bool) -> tuple:
+    """One rank of the P legs (every rank runs it, SPMD).  Rank 0 returns
+    its rows and, with ``cost_log``, its cost records."""
+    from repro_torch.obs import CostLog, set_cost_log
+
+    log = CostLog() if cost_log else None
+    prev = set_cost_log(log) if log is not None else None
+    try:
+        rows = [_race_leg(make_graph(corpus, n), corpus, n, group.size,
+                          model, repeats=repeats, device=group.device,
+                          group=group) for corpus, n in legs]
+    finally:
+        if log is not None:
+            set_cost_log(prev)
+    if group.rank != 0:
+        return [], []
+    return rows, (log.records if log is not None else [])
+
+
 def race(model, legs, *, repeats: int = 3, device="cuda",
-         verbose: bool = True) -> tuple:
-    """Race the two policies on every (corpus, n) leg at one device;
-    returns (rows, legs the model routed)."""
-    rows: List[Dict[str, Any]] = []
-    routed = 0
+         verbose: bool = True, devices: int = 1) -> tuple:
+    """Race the two policies on every (corpus, n) leg at one device and,
+    with ``devices`` > 1, at that many spawned ranks; returns (rows, legs
+    the model routed), each leg's P = 1 row first."""
+    from repro_torch.obs import get_cost_log
+
+    per_leg: List[List[Dict[str, Any]]] = []
     for corpus, n in legs:
         cg = make_graph(corpus, n)
-        row = _race_leg(cg, corpus, n, 1, model, repeats=repeats,
-                        device=device)
-        rows.append(row)
-        routed += int(row["tuned"]["via"] == "model")
-        if verbose:
-            print(f"  {corpus:6s} n={n:6d} P=1 "
+        per_leg.append([_race_leg(cg, corpus, n, 1, model, repeats=repeats,
+                                  device=device)])
+    if devices > 1:
+        import tempfile
+
+        from repro_torch.core._dist import BACKEND_OF, spawn
+
+        log = get_cost_log()
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn(_race_rank, devices,
+                          backend=BACKEND_OF[torch.device(device).type],
+                          store_dir=tmp,
+                          args=(model, legs, repeats, log.enabled))
+        rows_p, records = ranks[0]
+        if log.enabled:
+            log.records.extend(records)
+        for leg, row in zip(per_leg, rows_p):
+            leg.append(row)
+    rows = [row for leg in per_leg for row in leg]
+    routed = sum(int(row["tuned"]["via"] == "model") for row in rows)
+    if verbose:
+        for row in rows:
+            print(f"  {row['corpus']:6s} n={row['n']:6d} P={row['nprocs']} "
                   f"base={row['base']['engine']:24s}"
                   f"{row['base']['wall_s'] * 1e3:9.2f}ms  "
                   f"tuned={row['tuned']['engine']:24s}"
@@ -225,12 +270,15 @@ def race(model, legs, *, repeats: int = 3, device="cuda",
 def run(smoke: bool = False, repeats: int = 3, devices: int = 1,
         calibration: str = DEFAULT_CALIBRATION, out: str = DEFAULT_OUT,
         cost_out: Optional[str] = None, device="cuda") -> str:
-    from repro_torch.core.api import refuse_sharded, resolve_device
+    from repro_torch.core.api import resolve_device
     from repro_torch.obs import CostLog, backend_info, set_cost_log
     from repro_torch.tune.model import load_model
 
-    refuse_sharded(devices, "tune_bench")
     dev = resolve_device(device)
+    if devices > 1 and dev.type == "cuda":
+        from repro_torch.core._dist import check_gpus
+
+        check_gpus(devices)         # before any work: one GPU a rank
     if not os.path.exists(calibration):
         raise SystemExit(
             f"calibration file {calibration!r} not found — run "
@@ -243,7 +291,8 @@ def run(smoke: bool = False, repeats: int = 3, devices: int = 1,
     prev = set_cost_log(cost_log) if cost_log is not None else None
     t0 = time.time()
     try:
-        rows, routed = race(model, legs, repeats=repeats, device=dev)
+        rows, routed = race(model, legs, repeats=repeats, device=dev,
+                            devices=devices)
     finally:
         if cost_log is not None:
             set_cost_log(prev)
@@ -294,8 +343,8 @@ def main(argv=None) -> str:
                          "crossovers (parity + engagement gate only)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard arity of the extra legs; only 1 runs "
-                         "(P > 1 comes with ROADMAP A.11b)")
+                    help="shard arity of the extra legs, raced on that "
+                         "many spawned ranks (1 = none)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' races the plain engines")
     ap.add_argument("--calibration", default=DEFAULT_CALIBRATION,

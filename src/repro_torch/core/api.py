@@ -45,6 +45,11 @@ package's default policy does (``frontier``, ``multisource_csr``, or
 ``delta_stepping`` for large graphs whose weight profile allows it); on a
 CUDA device it names the kernel twin (``frontier_kernel``,
 ``delta_stepping_kernel``), whose answers and counters are the same.
+Given a ``group=`` and called on every rank of it, ``"auto"`` takes the
+default policy for that group, which routes a graph at or above its shard
+threshold to ``frontier_sharded`` (``multisource_csr_sharded`` for a
+batch) on the group, and anything smaller to the one-device engine, run
+alike on every rank.
 
 With a tracer or a cost log installed (repro_torch/obs), every solve runs
 inside a ``solve`` span and emits one cost record stamped with its device.
@@ -141,22 +146,11 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def refuse_sharded(devices: int, what: str) -> None:
-    """Raise ``NotImplementedError`` when ``what`` asks for ``devices`` > 1:
-    its sharded leg needs the leader / follower rank protocol of ROADMAP
-    A.11b (the sharded engines themselves are ported), and nothing quietly
-    runs at one device instead."""
-    if int(devices) > 1:
-        raise NotImplementedError(
-            f"{what} with {devices} devices is not ported yet: its sharded "
-            f"leg comes with ROADMAP A.11b; run it on one device")
-
-
-def _validate(engine, delta, target, group, minloc):
+def _validate(engine, delta, target, group, minloc, *, auto=False):
     """Eager checks, before any staging: unknown engines, a bad Δ, and
     arguments an engine would silently ignore (``group=`` outside the
-    sharded engines and ``multisource``, ``minloc=`` outside
-    ``dijkstra_sharded``)."""
+    sharded engines, ``multisource`` and ``"auto"`` — ``auto`` says the
+    engine came from it —, ``minloc=`` outside ``dijkstra_sharded``)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     if delta is not None:
@@ -179,7 +173,7 @@ def _validate(engine, delta, target, group, minloc):
         raise ValueError(
             f"target= early exit needs a frontier engine "
             f"{FRONTIER_ENGINES}; got {engine!r}")
-    if group is not None and engine not in SHARDED_ENGINES + (
+    if group is not None and not auto and engine not in SHARDED_ENGINES + (
             "multisource",):
         raise ValueError(f"engine {engine!r} runs on one device and would "
                          f"ignore group=")
@@ -202,19 +196,25 @@ def _edge_count(g) -> int:
     return 0
 
 
-def _resolve_auto(g, source, *, engine, delta, target, device):
+def _resolve_auto(g, source, *, engine, delta, target, device, group=None):
     """Resolve ``engine="auto"`` through the serving layer's dispatch seam
-    (serve/dispatch.py): the default policy for ``device`` picks the engine
-    and may give a Δ, which binds only when the caller passed none.
-    Returns the concrete ``(engine, delta)``; other engines pass through."""
+    (serve/dispatch.py): the default policy for ``device`` (and ``group``)
+    picks the engine and may give a Δ, which binds only when the caller
+    passed none.  A sharded choice needs the caller's ``group`` of the
+    policy's arity.  Returns the concrete ``(engine, delta)``; other
+    engines pass through."""
     if engine != "auto":
         return engine, delta
     from repro_torch.serve.dispatch import default_policy
 
     multi = np.ndim(source) > 0
-    choice = default_policy(device).choose(
+    choice = default_policy(device, group).choose(
         g, kind="batch" if multi else ("p2p" if target is not None
                                        else "single"))
+    if choice.sharded and (group is None or group.size != choice.nprocs):
+        raise ValueError(
+            f"engine='auto' routes to {choice.engine} on {choice.nprocs} "
+            f"ranks: call it on every rank of such a group (group=)")
     engine = choice.engine
     if (delta is None and choice.delta is not None
             and engine in _DELTA_CONSUMERS):
@@ -257,8 +257,11 @@ def shortest_paths(
 
     # resolve "auto" here so the record carries the routed engine's Δ; the
     # facade passes the concrete engine straight through.
+    auto = engine == "auto"
     engine, delta = _resolve_auto(g, source, engine=engine, delta=delta,
-                                  target=target, device=device)
+                                  target=target, device=device, group=group)
+    if auto and engine not in SHARDED_ENGINES:
+        kw["group"] = None      # "auto" chose one device: every rank alike
     m = _edge_count(g)
     t0 = _time.perf_counter()
     with tr.span("solve", engine=engine) as sp:
@@ -331,9 +334,10 @@ def _shortest_paths(
     group's size; each rank stages its own block only.  ``minloc`` picks
     ``dijkstra_sharded``'s MINLOC collective (default ``"allgather"``).
     """
+    auto = engine == "auto"
     engine, delta = _resolve_auto(g, source, engine=engine, delta=delta,
-                                  target=target, device=device)
-    delta = _validate(engine, delta, target, group, minloc)
+                                  target=target, device=device, group=group)
+    delta = _validate(engine, delta, target, group, minloc, auto=auto)
     dev = resolve_device(device)
     if engine in SHARDED_ENGINES and group is None:
         raise ValueError(f"engine {engine!r} needs a group")
@@ -341,6 +345,9 @@ def _shortest_paths(
             group.device.type == dev.type
             and dev.index in (None, group.device.index)):
         raise ValueError(f"device {dev} is not the group's {group.device}")
+    if group is not None and engine not in SHARDED_ENGINES + (
+            "multisource",):
+        group = None            # "auto" chose one device: every rank alike
 
     from repro_torch.dynamic.overlay import DynamicGraph  # dynamic uses api
 

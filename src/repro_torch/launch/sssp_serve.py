@@ -38,9 +38,21 @@ expected status (or the retry counters).
 ``--calibration PATH`` (``CALIBRATION_torch.json`` for the card, written
 by ``python -m repro_torch.tune.calibrate``) serves through the port's
 ``TunedPolicy``, which refuses a calibration measured on another
-backend.  ``--devices P > 1``
-and ``--shard-threshold`` raise ``NotImplementedError``: serving from the
-sharded engines comes with ROADMAP A.11b.
+backend.
+
+``--devices P`` opens a serving group of P ranks (core/_dist.
+open_serving_group: this process is the leader, P - 1 followers are
+spawned; gloo ranks on the CPU, NCCL ranks one GPU each) and
+``--shard-threshold N`` routes graphs with >= N vertices through the
+vertex-partitioned sharded engines on it (serve/dispatch.py); ``--verify``
+covers the sharded answers identically.  ``--shared-card`` puts all P
+ranks on the one card of ``--device`` over gloo, the only way one GPU
+holds P ranks; without it ``--device cuda --devices P`` needs P GPUs.  A
+rank that dies or raises breaks the group: its answers fail typed, and
+the driver exits non-zero.
+
+    PYTHONPATH=src python -m repro_torch.launch.sssp_serve --smoke \
+        --devices 4 --shard-threshold 128 --device cpu
 
 ``main`` returns a summary dict (per scenario: latency, throughput,
 answers by path, rows verified) for in-process callers.
@@ -53,12 +65,13 @@ import time
 import numpy as np
 
 from repro_torch.core import csr as C
-from repro_torch.core.api import refuse_sharded, resolve_device, shortest_paths
+from repro_torch.core.api import resolve_device, shortest_paths
 from repro_torch.serve import (STATUS_OK, STATUSES, DispatchPolicy,
                                DistanceCache, GraphRegistry, LatencyRecorder,
                                MicroBatchScheduler, MutationEvent,
                                QueryRejected, SCENARIOS, make_churn_trace,
                                make_trace, policy_override)
+from repro_torch.serve.dispatch import DEFAULT_SHARD_THRESHOLD
 
 
 def replay(sched: MicroBatchScheduler, events, verify=None) -> tuple:
@@ -282,7 +295,7 @@ def run_chaos(args, dispatch) -> dict:
     statics = [(f"g{i}", C.random_csr_graph(n, 3 * n, seed=args.seed + i))
                for i in range(args.graphs)]
     dyn = DynamicGraph(C.random_csr_graph(n, 3 * n, seed=args.seed + 77))
-    registry = GraphRegistry(device=dispatch.device)
+    registry = GraphRegistry(device=dispatch.device, group=dispatch.group)
     cache = DistanceCache(capacity=args.cache_rows)
     sched = MicroBatchScheduler(
         registry, cache, max_batch=args.batch, dispatch=dispatch,
@@ -406,11 +419,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--devices", type=int, default=1,
-                    help="ranks for the sharded route; only 1 runs "
-                         "(sharded serving comes with ROADMAP A.11b)")
-    ap.add_argument("--shard-threshold", type=int, default=None,
-                    help="sharded-route crossover; refused (sharded "
-                         "serving comes with ROADMAP A.11b)")
+                    help="ranks of the serving group for the sharded "
+                         "route (1 = never shard)")
+    ap.add_argument("--shard-threshold", type=int,
+                    default=DEFAULT_SHARD_THRESHOLD,
+                    help="route graphs with >= this many vertices through "
+                         "the sharded engines (needs --devices > 1)")
+    ap.add_argument("--shared-card", action="store_true",
+                    help="run every rank on the one card of --device, "
+                         "over gloo (otherwise one GPU a rank)")
     ap.add_argument("--verify", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="bitwise-check every answer vs the reference "
@@ -448,22 +465,42 @@ def main(argv=None) -> dict:
                          "them")
     args = ap.parse_args(argv)
 
-    refuse_sharded(args.devices, "sssp_serve --devices")
-    if args.shard_threshold is not None:
-        raise NotImplementedError(
-            "sssp_serve --shard-threshold routes to sharded serving, which "
-            "comes with ROADMAP A.11b")
     dev = resolve_device(args.device)
-    if args.calibration:
-        from repro_torch.tune.model import load_model
-        from repro_torch.tune.select import TunedPolicy
-        dispatch = TunedPolicy(load_model(args.calibration), nprocs=1,
-                               device=dev)
-        print(f"[sssp_serve] tuned dispatch from {args.calibration}: "
-              f"{dispatch.model.coverage()['engines']}", flush=True)
-    else:
-        dispatch = DispatchPolicy(nprocs=1, device=dev)
+    group = None
+    if args.devices > 1:
+        from repro_torch.core._dist import open_serving_group
 
+        group = open_serving_group(args.devices, device=dev,
+                                   shared=args.shared_card)
+    kw = dict(shard_threshold=args.shard_threshold, nprocs=args.devices,
+              device=dev, group=group)
+    try:
+        if args.calibration:
+            from repro_torch.tune.model import load_model
+            from repro_torch.tune.select import TunedPolicy
+            dispatch = TunedPolicy(load_model(args.calibration), **kw)
+            print(f"[sssp_serve] tuned dispatch from {args.calibration}: "
+                  f"{dispatch.model.coverage()['engines']}", flush=True)
+        else:
+            dispatch = DispatchPolicy(**kw)
+        if dispatch.nprocs > 1:
+            print(f"[sssp_serve] sharded route: {dispatch.nprocs} devices, "
+                  f"threshold n>={args.shard_threshold} ({group.backend} "
+                  f"ranks on {'one card' if args.shared_card else dev.type},"
+                  f" started in {group.start_s:.2f}s)", flush=True)
+        report = _run(args, dispatch)
+        if group is not None and group.broken is not None:
+            raise SystemExit(f"[sssp_serve] {group.broken}")
+    finally:
+        if group is not None:
+            group.close()
+    print("[sssp_serve] done", flush=True)
+    return report
+
+
+def _run(args, dispatch) -> dict:
+    """The replay (chaos or wall-clock) under ``dispatch``, with the
+    tracer and cost log restored after."""
     from repro_torch.obs import get_cost_log, get_tracer, set_cost_log, \
         set_tracer
 
@@ -488,7 +525,6 @@ def main(argv=None) -> dict:
         report["tuned"] = {"calibration": args.calibration,
                            "model_routed": dispatch.model_routed,
                            "fallback_routed": dispatch.fallback_routed}
-    print("[sssp_serve] done", flush=True)
     return report
 
 
@@ -508,7 +544,7 @@ def _serve(args, dispatch) -> dict:
     report = {}
     for scen in scenarios:
         # fresh serving state per scenario so metrics don't bleed across
-        registry = GraphRegistry(device=dispatch.device)
+        registry = GraphRegistry(device=dispatch.device, group=dispatch.group)
         cache = DistanceCache(capacity=args.cache_rows)
         sched = MicroBatchScheduler(registry, cache, max_batch=args.batch,
                                     dispatch=dispatch,
@@ -542,6 +578,12 @@ def _serve(args, dispatch) -> dict:
                   f"p99 {lat['queue_p99_ms']:.1f} ms | service "
                   f"p50 {lat['service_p50_ms']:.1f} ms / "
                   f"p99 {lat['service_p99_ms']:.1f} ms", flush=True)
+        if s["sharded_batches"] or s["sharded_p2p"]:
+            print(f"[sssp_serve] {scen}: sharded route "
+                  f"{s['sharded_batches']} batches + {s['sharded_p2p']} "
+                  f"p2p ({s['sharded_sources']} sources, "
+                  f"{s['sharded_edges']} edges relaxed) on "
+                  f"{dispatch.nprocs} devices", flush=True)
         # end-of-run accounting: the cache and registry counters the
         # scheduler aggregates but the per-scenario line above elides
         c, r = s["cache"], s["registry"]
@@ -565,7 +607,9 @@ def _serve(args, dispatch) -> dict:
                "mean_occupancy": s["mean_occupancy"],
                "dedup_saved": s["dedup_saved"],
                "cache_hit_rate": s["cache"]["hit_rate"],
-               "answered_via": dict(s["answered_via"])}
+               "answered_via": dict(s["answered_via"]),
+               **{k: s[k] for k in ("sharded_batches", "sharded_p2p",
+                                    "sharded_sources", "sharded_edges")}}
         if verify:
             # deadline / bounded-queue runs legitimately produce typed
             # failures; every exact answer must still match the reference.
@@ -586,6 +630,8 @@ def _serve(args, dispatch) -> dict:
                   f"{', each against scipy' if oracle else ''})",
                   flush=True)
         report[scen] = row
+        for name in registry.names:     # frees the followers' blocks too
+            registry.evict(name)
     return report
 
 

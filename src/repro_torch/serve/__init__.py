@@ -18,9 +18,9 @@ from repro_torch.serve.dispatch import (DispatchPolicy, EngineChoice,
                                         default_policy, policy_override,
                                         set_default_policy)
 from repro_torch.serve.errors import (STATUS_OK, STATUSES, DeadlineExceeded,
-                                      GraphGone, NotConverged, QueryRejected,
-                                      SchedulerStalled, ServeError,
-                                      SolveFailed)
+                                      GraphGone, GroupBroken, NotConverged,
+                                      QueryRejected, SchedulerStalled,
+                                      ServeError, SolveFailed)
 from repro_torch.serve.faults import (SITES, FaultPlan, FaultRecord,
                                       InjectedFault)
 from repro_torch.serve.landmarks import LandmarkSet, build_landmarks
@@ -43,6 +43,7 @@ __all__ = [
     "FaultRecord",
     "GraphGone",
     "GraphHandle",
+    "GroupBroken",
     "GraphRegistry",
     "InjectedFault",
     "LandmarkSet",

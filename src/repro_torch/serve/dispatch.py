@@ -9,13 +9,15 @@ Centralizing the choice keeps the two paths answering identically and
 gives operators a single knob set.
 
 The thresholds are the JAX package's.  Graphs with ``n >=
-shard_threshold`` route to the vertex-partitioned engines only when the
-device has peers to partition across (``nprocs`` is
-``torch.cuda.device_count()`` for a CUDA policy, 1 for the CPU), so on one
-card nothing shards; the sharded engines belong to a later slice of the
-port and raise ``NotImplementedError`` where they would run.  Below the
-shard crossover, large single-source solves on static CSR graphs route to
-the Δ-stepping engine when the graph's weight profile keeps its light
+shard_threshold`` route to the vertex-partitioned engines only when there
+are ranks to partition across: ``nprocs`` is the size of the policy's
+``group`` when it has one (a core/_dist.ServingGroup the scheduler serves
+through, or the ShardGroup of an SPMD ``engine="auto"`` call), else
+``torch.cuda.device_count()`` for a CUDA policy and 1 for the CPU, as JAX
+clamps to the visible devices.  A scheduler refuses at construction a
+policy that would shard with no serving group.  Below the shard
+crossover, large single-source solves on static CSR graphs route to the
+Δ-stepping engine when the graph's weight profile keeps its light
 in-degree narrow (``would_delta``).  Dynamic graphs never shard and stay
 on the plain engines: their serving path runs the overlay sweeps
 (dynamic/repair.py) on the overlay operands.
@@ -28,7 +30,8 @@ the Δ route — whose dist, pred and counters are bitwise those of the
 plain engine; ``multisource_csr`` has no kernel in either package and
 stays.  The choice is the same; the port implements it with its kernels.
 
-``EngineChoice`` keeps the JAX fields; ``mesh`` is always None here.
+``EngineChoice`` keeps the JAX fields; ``mesh`` carries the policy's
+group on a sharded choice, as JAX's carries the serving mesh.
 """
 from __future__ import annotations
 
@@ -76,8 +79,9 @@ class EngineChoice:
     port's frontier engine has no chunks and ignores it), ``batch_cap``
     the padded multisource bucket ceiling the scheduler should admit per
     tick.  ``None`` means "caller keeps its default".  ``via`` names which
-    arm decided: ``"threshold"`` for the size rules.  ``mesh`` and
-    ``axis`` keep the JAX fields for the sharded slice; ``mesh`` is None.
+    arm decided: ``"threshold"`` for the size rules.  ``mesh`` is the
+    group a sharded choice runs on (None for one device); ``axis`` keeps
+    the JAX field.
     """
     engine: str
     mesh: Optional[object]
@@ -98,28 +102,39 @@ class DispatchPolicy:
 
     shard_threshold: vertex count at which graphs route sharded
         (inclusive).  ``None`` disables sharding outright.
-    nprocs: devices to partition across; default = every device of
-        ``device``'s type (``torch.cuda.device_count()``, or 1 on the
-        CPU), clamped to it; 1 also disables sharding.
-    axis: mesh axis name (the JAX field, for the sharded slice).
+    nprocs: ranks to partition across; default = the ``group``'s size,
+        or without one every device of ``device``'s type
+        (``torch.cuda.device_count()``, or 1 on the CPU), clamped to it;
+        1 also disables sharding.
+    axis: mesh axis name (the JAX field).
     delta_threshold: vertex count at which non-sharded single-source
         solves on static CsrGraphs route to the Δ-stepping engine
         (inclusive), when the graph's weight profile supports it.
         ``None`` disables Δ routing.
     device: the device the routed solves run on; ``"cuda"`` needs a GPU
         and raises without one.
+    group: the ranks sharded solves run on — a core/_dist.ServingGroup
+        (the scheduler's) or ShardGroup (an SPMD ``engine="auto"``
+        call); its device type must be ``device``'s.
     """
 
     def __init__(self, *,
                  shard_threshold: int | None = DEFAULT_SHARD_THRESHOLD,
                  nprocs: int | None = None, axis: str = "data",
                  delta_threshold: int | None = DEFAULT_DELTA_THRESHOLD,
-                 device="cuda"):
+                 device="cuda", group=None):
         from repro_torch.core.api import resolve_device
 
         self.device = resolve_device(device)
-        avail = (torch.cuda.device_count() if self.device.type == "cuda"
-                 else 1)
+        if group is not None:
+            if group.device.type != self.device.type:
+                raise ValueError(f"group on {group.device}, policy for "
+                                 f"{self.device}")
+            avail = group.size
+        else:
+            avail = (torch.cuda.device_count()
+                     if self.device.type == "cuda" else 1)
+        self.group = group
         self.nprocs = avail if nprocs is None else min(int(nprocs), avail)
         self.shard_threshold = shard_threshold
         self.delta_threshold = delta_threshold
@@ -183,7 +198,7 @@ class DispatchPolicy:
         if n is None:
             n = int(np.asarray(g).shape[0])
         if self.would_shard(int(n), dynamic=dynamic):
-            return EngineChoice(self._SHARDED[kind], None, self.axis,
+            return EngineChoice(self._SHARDED[kind], self.group, self.axis,
                                 self.nprocs)
         if dynamic:
             return EngineChoice(self._SINGLE[kind], None, self.axis, 1)
@@ -198,13 +213,16 @@ _DEFAULT: Optional[DispatchPolicy] = None
 _BY_DEVICE: dict = {}
 
 
-def default_policy(device="cuda") -> DispatchPolicy:
+def default_policy(device="cuda", group=None) -> DispatchPolicy:
     """Process-wide policy used by ``shortest_paths(engine="auto")`` and by
     schedulers constructed without an explicit ``dispatch=``: the policy
     installed by :func:`set_default_policy` if any, else the threshold
-    policy for ``device``'s type, built on first use."""
+    policy for ``device``'s type (built on first use), or for ``group``
+    when one is given (built per call: a group is short-lived)."""
     if _DEFAULT is not None:
         return _DEFAULT
+    if group is not None:
+        return DispatchPolicy(device=device, group=group)
     key = torch.device(device).type
     if key not in _BY_DEVICE:
         _BY_DEVICE[key] = DispatchPolicy(device=device)

@@ -27,6 +27,9 @@ DeadlineExceeded   deadline_exceeded    the query's deadline passed before
 SolveFailed        solve_failed         an engine solve (or operand staging)
                                         raised and the per-query retry
                                         budget is exhausted
+GroupBroken        solve_failed         a rank of the serving group died or
+                                        raised (core/_dist.ServingGroup):
+                                        answered at once, never retried
 NotConverged       not_converged        the fixpoint engine hit its
                                         ``max_sweeps`` cap before
                                         convergence (SsspResult.converged
@@ -81,6 +84,18 @@ class SolveFailed(ServeError):
     exponential backoff, per-query budget) did not recover it."""
 
     code = "solve_failed"
+
+
+class GroupBroken(SolveFailed):
+    """A rank of the serving group that runs the sharded engines
+    (core/_dist.ServingGroup) died or raised, so the group can serve no
+    more sharded solves: this one and every later one fail at once with
+    this error, which names the ``rank``.  Graphs served on one device go
+    on serving.  It keeps SolveFailed's ``code``."""
+
+    def __init__(self, message: str, *, rank: int):
+        super().__init__(message)
+        self.rank = rank
 
 
 class NotConverged(ServeError):

@@ -14,11 +14,13 @@ worth pinning here:
   device and cached on the handle (the frontier dict reuses the
   segment-min tensors);
 * the **landmark set** (serve/landmarks.py), built at registration with
-  one batched multisource solve.
-
-The vertex-partitioned view the sharded engines serve from comes with
-the serving seams of ROADMAP A.11b (the engines themselves are ported):
-``partition()`` and ``partition_ops()`` raise ``NotImplementedError``.
+  one batched multisource solve;
+* the **vertex-partitioned view** (``CsrGraph.partitioned``) and its
+  staged per-owner blocks, for graphs the dispatch policy routes to the
+  sharded engines (serve/dispatch.py) — built lazily on first sharded
+  solve on the registry's serving group (core/_dist.ServingGroup: the
+  leader stages its own block here, every follower its own), accounted
+  like every other staged view and dropped on every rank on eviction.
 
 Memory is accounted with the containers' own byte counters (``CsrGraph.
 nbytes``, ``LandmarkSet.nbytes``, ``.nbytes`` of every distinct staged
@@ -53,9 +55,6 @@ from repro_torch.core.frontier import frontier_operands
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve.landmarks import LandmarkSet, build_landmarks
 
-_SHARDED_SLICE = ("serving from the sharded engines' vertex-partitioned "
-                  "view comes with ROADMAP A.11b")
-
 
 @dataclasses.dataclass
 class GraphHandle:
@@ -82,9 +81,21 @@ class GraphHandle:
     landmarks_stale: bool = False
     landmark_refreshes: int = 0
     landmark_seed: int = 0
+    group: Optional[object] = None             # core/_dist.ServingGroup
     _csr_ops: Optional[dict] = dataclasses.field(default=None, repr=False)
     _frontier_ops: Optional[dict] = dataclasses.field(default=None,
                                                       repr=False)
+    # vertex-partitioned view + its staged blocks (sharded serving path,
+    # serve/dispatch.py); keyed by nprocs — a policy change restages.
+    # The leader's block is here, the followers' are in their processes
+    # under ``_partition_slot`` and only their bytes are known here.
+    _partition: Optional[csr_mod.CsrPartition] = dataclasses.field(
+        default=None, repr=False)
+    _partition_ops: Optional[dict] = dataclasses.field(default=None,
+                                                       repr=False)
+    _partition_nprocs: int = 0
+    _partition_slot: Optional[int] = None
+    _partition_remote_bytes: int = 0
 
     @property
     def n(self) -> int:
@@ -150,15 +161,53 @@ class GraphHandle:
                 self.cg, device=self.device, base_ops=self.csr_ops())
         return self._frontier_ops
 
-    def partition(self, nprocs: int):
-        """The vertex-partitioned view of the sharded engines: not ported
-        yet."""
-        raise NotImplementedError(_SHARDED_SLICE)
+    def partition(self, nprocs: int) -> csr_mod.CsrPartition:
+        """The handle's vertex-partitioned view for ``nprocs`` owners,
+        built once and pinned (the sharded serving path's analogue of the
+        staged operand dicts); a new arity drops the staged blocks of the
+        old one.  Dynamic graphs refuse: a CsrPartition freezes the arc
+        set, so the overlay's in-place mutations would silently stop
+        reaching sharded answers."""
+        if self.dyn is not None:
+            raise ValueError(
+                f"graph {self.name!r} is dynamic; the sharded engines "
+                "run on a frozen CsrPartition and never serve dynamic "
+                "graphs (serve/dispatch.py pins them single-device)")
+        nprocs = int(nprocs)
+        if self._partition is None or self._partition_nprocs != nprocs:
+            self.drop_partition()
+            self._partition = self.cg.partitioned(nprocs)
+            self._partition_nprocs = nprocs
+        return self._partition
 
     def partition_ops(self, nprocs: int) -> dict:
-        """The staged per-owner tensors of :meth:`partition`: not ported
-        yet."""
-        raise NotImplementedError(_SHARDED_SLICE)
+        """The leader's staged block of :meth:`partition`, staged once on
+        every rank of the registry's serving group (each follower stages
+        its own block and reports its bytes) so every sharded solve after
+        the first skips the upload.  Raises ``ValueError`` without a
+        serving group, or when ``nprocs`` is not the group's size."""
+        parts = self.partition(nprocs)
+        if self._partition_ops is None:
+            if self.group is None:
+                raise ValueError(
+                    f"graph {self.name!r}: staging a partition needs a "
+                    "serving group (GraphRegistry(group=...))")
+            slot, ops, sizes = self.group.stage(parts, self.cg)
+            self._partition_slot, self._partition_ops = slot, ops
+            self._partition_remote_bytes = sum(sizes[1:])
+        return self._partition_ops
+
+    @property
+    def partition_slot(self) -> Optional[int]:
+        """The serving group's slot of the staged partition, or None."""
+        return self._partition_slot
+
+    def drop_partition(self) -> None:
+        """Free the staged blocks on every rank (the view stays)."""
+        if self._partition_slot is not None:
+            self.group.drop(self._partition_slot)
+        self._partition_ops = self._partition_slot = None
+        self._partition_remote_bytes = 0
 
     def multisource_sweep_fn(self):
         """``sweep_fn`` the batched engine needs on this handle's operands
@@ -213,8 +262,11 @@ class GraphHandle:
             total = self.cg.nbytes
         if self.landmarks is not None:
             total += self.landmarks.nbytes
+        if self._partition is not None:
+            total += self._partition.nbytes      # host view (all owners)
+        total += self._partition_remote_bytes    # the followers' blocks
         seen = set()
-        for ops in (self._csr_ops, self._frontier_ops):
+        for ops in (self._csr_ops, self._frontier_ops, self._partition_ops):
             if ops:
                 seen.update((t.data_ptr(), t.nbytes) for t in ops.values())
         return total + sum(size for _, size in seen)
@@ -223,6 +275,8 @@ class GraphHandle:
 class GraphRegistry:
     """LRU-evicting map of name -> :class:`GraphHandle`, every handle
     staged on ``device`` (``"cuda"`` needs a GPU and raises without one).
+    ``group``, a core/_dist.ServingGroup whose leader runs on ``device``,
+    is where sharded-routed graphs stage their partitions.
 
     ``byte_budget=None`` disables eviction (the registry still accounts
     bytes).  ``on_evict(name)`` callbacks run for every evicted graph.
@@ -234,10 +288,14 @@ class GraphRegistry:
 
     def __init__(self, byte_budget: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None, *,
-                 device="cuda"):
+                 device="cuda", group=None):
         from repro_torch.core.api import resolve_device
 
         self.device = resolve_device(device)
+        if group is not None and group.device.type != self.device.type:
+            raise ValueError(f"serving group on {group.device}, registry "
+                             f"on {self.device}")
+        self.group = group
         self.byte_budget = byte_budget
         self._graphs: "collections.OrderedDict[str, GraphHandle]" = (
             collections.OrderedDict())
@@ -313,7 +371,8 @@ class GraphRegistry:
             handle = GraphHandle(name=name, device=self.device, dyn=g)
         else:
             cg = g if isinstance(g, csr_mod.CsrGraph) else g.to_csr()
-            handle = GraphHandle(name=name, device=self.device, cg=cg)
+            handle = GraphHandle(name=name, device=self.device, cg=cg,
+                                 group=self.group)
         handle.landmark_seed = landmark_seed
         if landmarks:
             handle.landmarks = build_landmarks(
@@ -400,7 +459,7 @@ class GraphRegistry:
             self._evict(name)
 
     def _evict(self, name: str) -> None:
-        del self._graphs[name]
+        self._graphs.pop(name).drop_partition()
         self._evicted.inc()
         for fn in self._on_evict:
             fn(name)

@@ -30,12 +30,18 @@ graph's frontier sweep is the ``frontier_relax`` kernel
 
 Engine SELECTION routes through the dispatch seam (serve/dispatch.py).
 Graphs the policy would shard (at or above its shard threshold, with
-devices to shard across) would solve on the vertex-partitioned engines,
-whose serving seams (a leader rank driving the others) come with ROADMAP
-A.11b: that route raises ``NotImplementedError``, out of the tick, rather
-than being
-answered as a transient solve failure.  Cache keys still carry the
-shard arity the policy's pure size check gives.
+ranks to shard across) solve on the vertex-partitioned engines through
+the registry's serving group (core/_dist.ServingGroup): this process is
+its leader rank and drives the follower ranks, so the scheduler works in
+process as JAX's does over a mesh.  A batch runs
+``multisource_csr_sharded`` on the padded bucket; a point-to-point query
+runs ``frontier_sharded`` to its FULL fixpoint (no early exit across
+owners) and its complete row is cached, which a partial ``target=`` row
+never is.  Sharded rows are cached under ``(name, owner shard, source)``
+keys, the shard arity coming from the policy's pure size check.  A
+policy that would shard without a serving group is refused when the
+scheduler is built; a broken group (a rank died or raised) answers its
+queries ``GroupBroken`` at once while single-device graphs go on serving.
 
 Every path returns bytes some engine solved (or a bound that *proves* the
 value), so served answers stay bitwise-equal to per-query ``serial``
@@ -102,21 +108,13 @@ from repro_torch.obs.trace import get_tracer
 from repro_torch.serve.cache import DistanceCache
 from repro_torch.serve.dispatch import DispatchPolicy, default_policy
 from repro_torch.serve.errors import (STATUS_OK, DeadlineExceeded, GraphGone,
-                                      NotConverged, QueryRejected,
-                                      SchedulerStalled, ServeError,
-                                      SolveFailed)
+                                      GroupBroken, NotConverged,
+                                      QueryRejected, SchedulerStalled,
+                                      ServeError, SolveFailed)
 from repro_torch.serve.registry import GraphRegistry
 
 VIAS = ("trivial", "cache", "landmark", "batch", "target", "mutate",
         "degraded", "error")
-
-
-def _refuse_sharded(choice, handle) -> None:
-    """The sharded route of a batch or p2p solve: its serving seam is not
-    ported yet."""
-    raise NotImplementedError(
-        f"{choice.engine} serving of {handle.name!r}: serving from the "
-        "sharded engines comes with ROADMAP A.11b")
 
 
 @dataclasses.dataclass
@@ -256,6 +254,7 @@ class MicroBatchScheduler:
         self.repair_rows = repair_rows
         self.dispatch = (dispatch if dispatch is not None
                          else default_policy(registry.device))
+        self._check_group(registry, self.dispatch)
         self.max_queue = max_queue
         self.retry_budget = retry_budget
         self.backoff_cap = backoff_cap
@@ -269,9 +268,7 @@ class MicroBatchScheduler:
         self._mutations: "collections.deque[Mutation]" = collections.deque()
         self._next_qid = 0
         # one sched.* series per legacy counter; __getattr__ serves the
-        # old plain-attribute reads from these.  The sharded series stay
-        # at 0 until the sharded engines are ported; they keep snapshot()
-        # equal to the JAX scheduler's.
+        # old plain-attribute reads from these.
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._c = {name: self.metrics.counter(f"sched.{name}")
                    for name in self._COUNTER_NAMES}
@@ -284,6 +281,25 @@ class MicroBatchScheduler:
         self.last_mutation_error: Optional[str] = None
         self._shed_acks: list = []          # delivered at next tick's start
         self._last_tick_stalled = False     # drain()'s progress-guard flag
+
+    @staticmethod
+    def _check_group(registry, dispatch) -> None:
+        """A policy that can route sharded needs the registry's serving
+        group, of the policy's arity, to stage and solve on: refuse it
+        here rather than in the middle of a tick."""
+        if not (dispatch.nprocs > 1
+                and dispatch.shard_threshold is not None):
+            return
+        group = getattr(dispatch, "group", None)
+        if group is None or group is not registry.group:
+            raise ValueError(
+                f"the dispatch policy shards across {dispatch.nprocs} "
+                "ranks but has no serving group, or not the registry's: "
+                "open one (core/_dist.open_serving_group) and pass it to "
+                "both GraphRegistry(group=) and the policy (group=)")
+        if group.size != dispatch.nprocs:
+            raise ValueError(f"the policy shards across {dispatch.nprocs} "
+                             f"ranks, its serving group has {group.size}")
 
     def __getattr__(self, name: str):
         # legacy counter attributes (sched.ticks, sched.engine_batches,
@@ -688,7 +704,7 @@ class MicroBatchScheduler:
         obs = tr.enabled or cl.enabled
         choice = self.dispatch.choose(handle, kind="p2p")
         if choice.sharded:
-            _refuse_sharded(choice, handle)
+            return self._solve_target_sharded(handle, q, choice)
         with tr.span("p2p_solve", qids=(q.qid,)) as sp:
             with tr.span("stage", graph=handle.name):
                 self._probe("stage", handle.name)
@@ -734,6 +750,57 @@ class MicroBatchScheduler:
                 "before the target settled")
         return Answer(q, value, "target")
 
+    def _stage_partition(self, handle, nprocs: int) -> int:
+        """The stage seam of a sharded solve: the graph's partition staged
+        on every rank of the serving group (once); returns its slot."""
+        with get_tracer().span("stage", graph=handle.name):
+            self._probe("stage", handle.name)
+            handle.partition_ops(nprocs)
+            self.registry.touch_staged(handle.name)
+        return handle.partition_slot
+
+    def _solve_target_sharded(self, handle, q: Query, choice) -> Answer:
+        """Point-to-point residue on the sharded route: one
+        ``frontier_sharded`` FULL fixpoint on the serving group — no early
+        exit exists across owners, but the complete row is cacheable
+        (``dist[target]`` bytes identical either way).  Raises
+        :class:`NotConverged` when a sweep cap stopped the engine short;
+        capped labels are never served or cached."""
+        tr = get_tracer()
+        cl = get_cost_log()
+        obs = tr.enabled or cl.enabled
+        with tr.span("p2p_solve", qids=(q.qid,)) as sp:
+            slot = self._stage_partition(handle, choice.nprocs)
+            self._probe("solve", handle.name)
+            ms = self._sweep_cap(handle.name)
+            t0 = time.perf_counter() if obs else 0.0
+            d, _, sw, e, conv = choice.mesh.solve(slot, q.source,
+                                                  max_sweeps=ms)
+            conv = bool(conv)
+            self._c["target_solves"].inc()
+            self._c["sharded_p2p"].inc()
+            self._c["sharded_sources"].inc()
+            self._c["sharded_edges"].inc(int(e))
+            if obs:
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                if tr.enabled:
+                    sp.set(engine=choice.engine, graph=handle.name,
+                           n=handle.n, m=handle.m, B=1, P=choice.nprocs,
+                           sweeps=int(sw), edges_relaxed=int(e),
+                           converged=conv)
+                be, kind = backend_info(handle.device)
+                cl.emit(engine=choice.engine, graph=handle.name, n=handle.n,
+                        m=handle.m, nprocs=choice.nprocs, sweeps=int(sw),
+                        edges_relaxed=int(e), wall_ms=wall_ms,
+                        converged=conv, backend=be, device_kind=kind)
+        if not conv:
+            raise NotConverged(
+                f"sharded p2p solve on {handle.name!r} capped at "
+                f"max_sweeps={ms}")
+        row = d[:handle.n].cpu().numpy()
+        self.cache.put(self._row_key(handle, q.source), row)
+        return Answer(q, float(row[q.target]), "target")
+
     def _solve_batch(self, handle, queries: list) -> list:
         """One bucket-padded multisource solve answering ``queries``
         (all on ``handle``'s graph, <= max_batch distinct sources).
@@ -752,27 +819,40 @@ class MicroBatchScheduler:
         cl = get_cost_log()
         obs = tr.enabled or cl.enabled
         qids = tuple(q.qid for q in queries) if obs else ()
-        if choice.sharded:
-            _refuse_sharded(choice, handle)
         engine = choice.engine
+        nprocs = choice.nprocs if choice.sharded else 1
         with tr.span("batch_solve", qids=qids) as sp:
-            with tr.span("stage", graph=handle.name):
-                self._probe("stage", handle.name)
-                ops = handle.csr_ops()
-                self.registry.touch_staged(handle.name)
-            self._probe("solve", handle.name)
-            ms = self._sweep_cap(handle.name)
-            t0 = time.perf_counter() if obs else 0.0
-            D, sw, conv = sssp_multisource_csr(
-                ops, torch.tensor(padded, dtype=torch.int64,
-                                  device=handle.device),
-                n=handle.n, sweep_fn=handle.multisource_sweep_fn(),
-                max_sweeps=ms)
-            rows = D.cpu().numpy()
-            converged = bool(conv)
-            # the segment engine relaxes every stored arc for every
-            # bucket lane each sweep — exact, not sampled
-            edges = int(sw) * handle.m * bucket if obs else 0
+            if choice.sharded:
+                slot = self._stage_partition(handle, nprocs)
+                self._probe("solve", handle.name)
+                ms = self._sweep_cap(handle.name)
+                t0 = time.perf_counter() if obs else 0.0
+                D, sw, e, conv = choice.mesh.solve_batch(slot, padded,
+                                                         max_sweeps=ms)
+                rows = D[:, :handle.n].cpu().numpy()
+                converged = bool(conv)
+                edges = int(e)
+                self._c["sharded_batches"].inc()
+                self._c["sharded_sources"].inc(len(distinct))
+                self._c["sharded_edges"].inc(edges)
+            else:
+                with tr.span("stage", graph=handle.name):
+                    self._probe("stage", handle.name)
+                    ops = handle.csr_ops()
+                    self.registry.touch_staged(handle.name)
+                self._probe("solve", handle.name)
+                ms = self._sweep_cap(handle.name)
+                t0 = time.perf_counter() if obs else 0.0
+                D, sw, conv = sssp_multisource_csr(
+                    ops, torch.tensor(padded, dtype=torch.int64,
+                                      device=handle.device),
+                    n=handle.n, sweep_fn=handle.multisource_sweep_fn(),
+                    max_sweeps=ms)
+                rows = D.cpu().numpy()
+                converged = bool(conv)
+                # the segment engine relaxes every stored arc for every
+                # bucket lane each sweep — exact, not sampled
+                edges = int(sw) * handle.m * bucket if obs else 0
             self._c["engine_batches"].inc()
             self._c["engine_sources"].inc(len(distinct))
             self._c["dedup_saved"].inc(len(queries) - len(distinct))
@@ -783,13 +863,13 @@ class MicroBatchScheduler:
                 wall_ms = (time.perf_counter() - t0) * 1e3
                 if tr.enabled:
                     sp.set(engine=engine, graph=handle.name, n=handle.n,
-                           m=handle.m, B=bucket, P=1, sweeps=int(sw),
+                           m=handle.m, B=bucket, P=nprocs, sweeps=int(sw),
                            edges_relaxed=edges,
                            occupancy=round(occupancy, 4),
                            converged=converged)
                 be, kind = backend_info(handle.device)
                 cl.emit(engine=engine, graph=handle.name, n=handle.n,
-                        m=handle.m, batch=bucket, nprocs=1,
+                        m=handle.m, batch=bucket, nprocs=nprocs,
                         sweeps=int(sw), edges_relaxed=edges,
                         wall_ms=wall_ms, converged=converged, backend=be,
                         device_kind=kind)
@@ -972,8 +1052,10 @@ class MicroBatchScheduler:
                 # typed immediately (satisfying the guardrail contract).
                 self._c["not_converged"].inc(len(take))
                 answers.extend(self._fail(q, e) for q in take)
-            except NotImplementedError:
-                raise                 # an unported route, not a fault
+            except GroupBroken as e:
+                # the serving group lost a rank: no retry can serve it
+                self._c["solve_exceptions"].inc()
+                answers.extend(self._fail(q, e) for q in take)
             except Exception as e:    # injected or real engine failure
                 self._c["solve_exceptions"].inc()
                 answers.extend(self._retry_or_fail(take, e, requeue))

@@ -15,8 +15,12 @@ asked about:
 On a CUDA device the engines are the kernel twins the CUDA dispatch names
 (``frontier_kernel``, ``bellman_csr_kernel``, ``delta_stepping_kernel``)
 and ``multisource_csr``; on the CPU JAX's plain set (``frontier``,
-``bellman_csr``, ``delta_stepping``, ``multisource_csr``).  Shard arity
-is 1: the sharded calibration records come with ROADMAP A.11b.
+``bellman_csr``, ``delta_stepping``, ``multisource_csr``).  ``--devices
+P`` adds JAX's sharded records: ``frontier_sharded``,
+``bellman_csr_sharded`` and ``multisource_csr_sharded`` at each batch
+width, run SPMD on P spawned ranks (core/_dist.spawn: gloo ranks on the
+CPU, NCCL ranks one GPU each), recorded by rank 0, each record carrying
+``nprocs: P``.
 
 Every solve goes through ``api.shortest_paths`` + ``obs.CostLog`` — the
 calibration records ARE ordinary v2 cost records, plus the per-graph
@@ -26,7 +30,8 @@ the first call of a kernel builds it with ``nvcc``), plus ``repeats``
 timed calls and keeps the MIN-wall record.
 
     PYTHONPATH=src python -m repro_torch.tune.calibrate [--smoke]
-        [--device cuda|cpu] [--repeats N] [--out CALIBRATION_torch.json]
+        [--device cuda|cpu] [--devices P] [--repeats N]
+        [--out CALIBRATION_torch.json]
 
 ``--smoke`` shrinks the grid to CI size.  The output is versioned
 (``schema``) and stamped with the measuring device's backend (``"gpu"``
@@ -115,20 +120,64 @@ def _measure(fn, cost_log, repeats: int, extra: Dict[str, Any]):
     return row
 
 
+def _graph_extra(cg, corpus: str, repeats: int) -> Dict[str, Any]:
+    """The topology features and corpus tag every record of ``cg``
+    carries."""
+    from repro_torch.tune.features import graph_features
+
+    feats = graph_features(cg)
+    return {"corpus": corpus, "hops": feats["hops"],
+            "skew": round(feats["skew"], 4),
+            "width": round(feats["width"], 2), "repeats": repeats}
+
+
+def _sharded_sweep(group, grid, repeats: int, batches) -> list:
+    """One rank of the sharded records (every rank runs it, SPMD): the
+    two single-source sharded engines and the batched one at each width,
+    on every graph of ``grid``.  Rank 0 returns the records."""
+    from repro_torch.core.api import shortest_paths
+    from repro_torch.obs import CostLog, set_cost_log
+
+    log = CostLog()
+    prev = set_cost_log(log)
+    records: List[Dict[str, Any]] = []
+    try:
+        for corpus, n, m in grid:
+            cg = make_graph(corpus, n, m)
+            extra = _graph_extra(cg, corpus, repeats)
+            srcs = np.linspace(0, cg.n - 1, max(batches)).astype(np.int32)
+            kw = dict(device=group.device, group=group)
+            for engine in ("frontier_sharded", "bellman_csr_sharded"):
+                records.append(_measure(
+                    lambda e=engine: shortest_paths(cg, 0, engine=e, **kw),
+                    log, repeats, extra))
+            for b in batches:
+                records.append(_measure(
+                    lambda b=b: shortest_paths(
+                        cg, srcs[:b], engine="multisource_csr_sharded", **kw),
+                    log, repeats, extra))
+    finally:
+        set_cost_log(prev)
+    return records if group.rank == 0 else []
+
+
 def sweep(grid, *, repeats: int = 3, devices: int = 1,
           smoke: bool = False, batches=None, verbose: bool = True,
           device="cuda") -> List[Dict[str, Any]]:
-    """Run the calibration sweep over ``grid`` on ``device``; returns
-    record dicts."""
-    from repro_torch.core.api import refuse_sharded, resolve_device
+    """Run the calibration sweep over ``grid`` on ``device``; with
+    ``devices`` > 1 the sharded records follow, measured on that many
+    spawned ranks.  Returns record dicts."""
+    from repro_torch.core.api import resolve_device
     from repro_torch.core.api import shortest_paths as _solve
     from repro_torch.core.delta_stepping import delta_profile
     from repro_torch.obs import CostLog, set_cost_log
     from repro_torch.serve.dispatch import engine_for
-    from repro_torch.tune.features import graph_features
 
-    refuse_sharded(devices, "calibration")
     dev = resolve_device(device)
+    if devices > 1 and dev.type == "cuda":
+        from repro_torch.core._dist import check_gpus
+
+        check_gpus(devices)         # before any work: one GPU a rank
 
     def shortest_paths(g, source, *, engine, **kw):
         return _solve(g, source, engine=engine_for(engine, dev), device=dev,
@@ -139,23 +188,20 @@ def sweep(grid, *, repeats: int = 3, devices: int = 1,
     log = CostLog()
     prev = set_cost_log(log)
     records: List[Dict[str, Any]] = []
+
+    def tag(row):
+        records.append(row)
+        if verbose:
+            print(f"  {row['corpus']} n={row['n']:6d} {row['engine']:24s} "
+                  f"B={row['batch']:<3d} P={row['nprocs']} "
+                  f"delta={row['delta']:<12.4g} "
+                  f"{row['wall_ms']:9.2f}ms", flush=True)
+
     try:
         for corpus, n, m in grid:
             cg = make_graph(corpus, n, m)
-            feats = graph_features(cg)
-            extra = {"corpus": corpus, "hops": feats["hops"],
-                     "skew": round(feats["skew"], 4),
-                     "width": round(feats["width"], 2),
-                     "repeats": repeats}
+            extra = _graph_extra(cg, corpus, repeats)
             srcs = np.linspace(0, cg.n - 1, max(batches)).astype(np.int32)
-
-            def tag(row):
-                records.append(row)
-                if verbose:
-                    print(f"  {corpus} n={cg.n:6d} {row['engine']:24s} "
-                          f"B={row['batch']:<3d} P={row['nprocs']} "
-                          f"delta={row['delta']:<12.4g} "
-                          f"{row['wall_ms']:9.2f}ms", flush=True)
 
             for engine in ("frontier", "bellman_csr"):
                 tag(_measure(lambda e=engine: shortest_paths(cg, 0, engine=e),
@@ -177,6 +223,17 @@ def sweep(grid, *, repeats: int = 3, devices: int = 1,
                     log, repeats, extra))
     finally:
         set_cost_log(prev)
+    if devices > 1:
+        import tempfile
+
+        from repro_torch.core._dist import BACKEND_OF, spawn
+
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn(_sharded_sweep, devices,
+                          backend=BACKEND_OF[dev.type], store_dir=tmp,
+                          args=(grid, repeats, batches))
+        for row in ranks[0]:
+            tag(row)
     return records
 
 
@@ -222,8 +279,8 @@ def main(argv=None) -> str:
     ap.add_argument("--smoke", action="store_true", help="CI-sized grid")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard arity; only 1 runs (P > 1 comes with "
-                         "ROADMAP A.11b)")
+                    help="shard arity of the extra sharded records, "
+                         "measured on that many spawned ranks (1 = none)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' calibrates the plain engines")
     ap.add_argument("--out", default=DEFAULT_OUT)

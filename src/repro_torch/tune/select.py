@@ -184,5 +184,6 @@ class TunedPolicy(DispatchPolicy):
         delta = (self.model.best_delta(engine, n=n, m=m, nprocs=nprocs)
                  if engine in DELTA_ENGINES else None)
         cap = (self.batch_cap(g) if kind == "batch" else None)
-        return EngineChoice(engine, None, self.axis, nprocs,
-                            delta=delta, batch_cap=cap, via="model")
+        return EngineChoice(engine, self.group if nprocs > 1 else None,
+                            self.axis, nprocs, delta=delta, batch_cap=cap,
+                            via="model")

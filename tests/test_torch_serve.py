@@ -199,16 +199,6 @@ def test_registry_single_graph_over_budget_is_admitted():
     assert "g" in registry and registry.stats()["over_budget"]
 
 
-def test_registry_refuses_the_sharded_view():
-    registry = GraphRegistry(device=CPU)
-    h = registry.register("g", carry(JC.random_csr_graph(40, 120, seed=0)))
-    for call in (h.partition, h.partition_ops):
-        with pytest.raises(NotImplementedError, match="sharded"):
-            call(2)
-    assert h.row_key(7) == ("g", 7)
-    assert h.row_key(7, shards=2) == ("g", 0, 7)     # owner block of 7
-
-
 def test_registry_eviction_purges_cache_rows():
     g0, g1 = (JC.random_csr_graph(150, 450, seed=i) for i in (0, 1))
     registry, cache, sched = _stack(g0, budget=int(1.5 * g0.nbytes),
@@ -744,24 +734,29 @@ def test_cuda_policy_names_the_kernel_twin(monkeypatch, name, kind):
     assert choice.engine == want and not choice.sharded
 
 
-def test_cuda_policy_on_four_cards_routes_sharded_and_the_scheduler_refuses(
+def test_cuda_policy_on_four_cards_routes_sharded_and_needs_a_group(
         monkeypatch):
+    """Routing is the pure size check on the visible cards; a scheduler
+    refuses at construction a policy that would shard with no serving
+    group (the group's own cases are in test_torch_serve_sharded.py)."""
     _fake_gpus(monkeypatch, 4)
     policy = DispatchPolicy(device="cuda")
     assert policy.nprocs == 4
     big = TC.sparse_csr_graph(20000, seed=0)
     assert policy.choose(big, kind="batch").engine == "multisource_csr_sharded"
     assert policy.choose(big, kind="p2p").engine == "frontier_sharded"
+    assert policy.choose(big, kind="p2p").mesh is None     # no group
+    assert not policy.choose(TC.sparse_csr_graph(100, seed=0)).sharded
     assert DispatchPolicy(device="cuda", nprocs=2).nprocs == 2
     registry = GraphRegistry(device="cuda")
-    sched = MicroBatchScheduler(registry, DistanceCache(4), dispatch=policy)
-    registry.register("big", big)                 # nothing staged yet
-    assert sched._row_key(registry.get("big"), 7) == ("big", 0, 7)
-    for target in (None, 5):
-        sched.submit("big", 7, target)
-        with pytest.raises(NotImplementedError, match="sharded"):
-            sched.tick()
-        sched._queue.clear()
+    h = registry.register("big", big)             # nothing staged yet
+    assert h.row_key(7, shards=4) == ("big", 0, 7)
+    with pytest.raises(ValueError, match="serving group"):
+        MicroBatchScheduler(registry, DistanceCache(4), dispatch=policy)
+    # a policy that cannot shard needs none
+    MicroBatchScheduler(registry, DistanceCache(4),
+                        dispatch=DispatchPolicy(device="cuda",
+                                                shard_threshold=None))
 
 
 def test_default_policy_per_device_and_override():

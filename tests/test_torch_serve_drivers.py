@@ -13,9 +13,13 @@ against the JAX package's drivers where a stream is deterministic.
 - ``serve_bench --smoke`` and ``tune_bench --smoke`` (on a CPU calibration
   written by the port's ``tune.calibrate``) write their JSON with every
   gate passing;
-- every entry point defaults to CUDA and raises without a GPU, and the
-  sharded requests (``--devices P > 1``, ``--shard-threshold``) raise
-  ``NotImplementedError`` instead of quietly running at P = 1.
+- every entry point defaults to CUDA and raises without a GPU, and a
+  sharded request without its ranks raises instead of quietly running at
+  P = 1;
+- ``sssp_serve --smoke --devices 4 --shard-threshold 128`` verifies every
+  answer of its three scenarios on 4 gloo ranks, and ``serve_bench
+  --devices 4`` writes ``sharded_results`` with a passing
+  ``gate_sharded``.
 """
 import copy
 import json
@@ -229,23 +233,64 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(entry,
         call()
 
 
-@pytest.mark.parametrize("entry", ["serve_devices", "serve_threshold",
-                                   "serve_bench", "tune_bench"])
-def test_sharded_requests_raise_naming_the_sharded_slice(entry, tmp_path):
+@pytest.mark.parametrize("entry", ["serve_cuda", "serve_shared_cpu",
+                                   "serve_bench_cuda", "tune_bench_cuda"])
+def test_sharded_requests_without_their_ranks_raise(entry, tmp_path):
+    """No fallback: P CUDA ranks need P GPUs (or the shared-card pairing
+    by name), the shared-card pairing needs a card, and nothing runs at
+    fewer ranks or on the CPU instead."""
     from repro_torch.benchmarks import serve_bench, tune_bench
 
-    call = {
-        "serve_devices": lambda: sssp_serve.main(
-            ["--smoke", "--devices", "4", *CPU]),
-        "serve_threshold": lambda: sssp_serve.main(
-            ["--smoke", "--shard-threshold", "128", *CPU]),
-        "serve_bench": lambda: serve_bench.main(
-            ["--smoke", "--devices", "4", *CPU, "--out",
-             str(tmp_path / "s.json")]),
-        "tune_bench": lambda: tune_bench.main(
-            ["--smoke", "--devices", "4", *CPU, "--out",
-             str(tmp_path / "t.json")]),
+    call, err = {
+        "serve_cuda": (lambda: sssp_serve.main(
+            ["--smoke", "--devices", "4"]), RuntimeError),
+        "serve_shared_cpu": (lambda: sssp_serve.main(
+            ["--smoke", "--devices", "2", "--shared-card", *CPU]),
+            ValueError),
+        "serve_bench_cuda": (lambda: serve_bench.main(
+            ["--smoke", "--devices", "4", "--out",
+             str(tmp_path / "s.json")]), RuntimeError),
+        "tune_bench_cuda": (lambda: tune_bench.main(
+            ["--smoke", "--devices", "4", "--out",
+             str(tmp_path / "t.json")]), RuntimeError),
     }[entry]
-    with pytest.raises(NotImplementedError, match="A.11"):
+    if torch.cuda.device_count() >= 4 and err is RuntimeError:
+        pytest.skip("four GPUs are present")
+    with pytest.raises(err, match="GPU|CUDA|card"):
         call()
     assert not list(tmp_path.iterdir())     # refused before any work
+
+
+def test_sssp_serve_driver_sharded_replay_verifies(capsys):
+    """JAX's test_sssp_serve_driver_sharded_replay_verifies on 4 gloo
+    ranks: every answer of the three scenarios bitwise equal to serial."""
+    report = sssp_serve.main(["--smoke", "--devices", "4",
+                              "--shard-threshold", "128", *CPU])
+    out = capsys.readouterr().out
+    assert "sharded route: 4 devices" in out
+    assert out.count("verified bitwise vs serial") == 3
+    assert " batches + " in out
+    for scen, r in report.items():
+        assert r["queries"] == r["exact_checked"] == 60, scen
+        assert r["sharded_sources"] > 0, scen
+    assert not torch.distributed.is_initialized()     # the group closed
+
+
+def test_serve_bench_sharded_leg_writes_a_passing_gate(tmp_path,
+                                                       monkeypatch):
+    from repro_torch.benchmarks import serve_bench
+
+    # the sharded leg is what is new here; one scenario keeps the main gate
+    monkeypatch.setattr(serve_bench, "SCENARIOS", ("zipf",))
+    out = tmp_path / "serve.json"
+    serve_bench.run(smoke=True, out=str(out), devices=4, device="cpu")
+    doc = json.loads(out.read_text())
+    (rec,) = doc["sharded_results"]
+    gate = doc["gate_sharded"]
+    assert gate["pass"] and not gate["ratio_enforced"]
+    assert gate["edges_ratio"] < 1.0
+    assert (rec["n"], rec["devices"], rec["backend"]) == (1000, 4, "gloo")
+    assert rec["sharded_sources"] > 0 and rec["verified_bitwise"]
+    assert (rec["sharded_edges_per_solve"]
+            < rec["frontier_edges_per_solve"])
+    assert doc["meta"]["devices"] == 4

@@ -556,13 +556,104 @@ def test_calibration_file_stamped_and_fits_a_cpu_policy(tmp_path,
     assert pol.model_routed + pol.fallback_routed == 1
 
 
-def test_sweep_and_calibration_refuse_several_devices():
+@pytest.fixture(scope="module")
+def two_rank_calibration(tmp_path_factory):
+    """A smoke calibration with the sharded records of 2 gloo ranks."""
     from repro_torch.tune import calibrate
 
-    with pytest.raises(NotImplementedError, match="A.11"):
-        calibrate.sweep(calibrate.SMOKE_GRID, devices=4, device=CPU)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        calibrate.main(["--smoke", "--devices", "2", "--device", "cpu"])
+    out = tmp_path_factory.mktemp("cal2") / "c.json"
+    calibrate.run(smoke=True, repeats=1, devices=2, out=str(out),
+                  verbose=False, device=CPU)
+    return str(out)
+
+
+def test_calibration_on_two_ranks_adds_the_sharded_records(
+        two_rank_calibration):
+    from repro_torch.tune import calibrate
+
+    doc = json.load(open(two_rank_calibration))
+    # the key sets of JAX's records (delta_kind on the Δ races only)
+    jax_keys = {frozenset(r) for r in json.load(open(CALIBRATION))["records"]}
+    assert doc["meta"]["devices"] == 2
+    recs = doc["records"]
+    assert all(frozenset(r) in jax_keys for r in recs)
+    sharded = [r for r in recs if r["engine"].endswith("_sharded")]
+    assert {r["nprocs"] for r in sharded} == {2}
+    assert all(r["nprocs"] == 1 for r in recs if r not in sharded)
+    for corpus, n, m in calibrate.SMOKE_GRID:
+        g = calibrate.make_graph(corpus, n, m)
+        mine = [(r["engine"], r["batch"]) for r in sharded
+                if (r["corpus"], r["n"], r["m"]) == (corpus, g.n, g.nnz)]
+        assert mine == [("frontier_sharded", 1), ("bellman_csr_sharded", 1)] \
+            + [("multisource_csr_sharded", b)
+               for b in calibrate.BATCHES_SMOKE], (corpus, n)
+    assert all(r["converged"] and r["wall_ms"] > 0 for r in sharded)
+    # JAX's loader and fit take the file as they take their own
+    assert j_load_model(two_rank_calibration).to_json() == load_model(
+        two_rank_calibration).to_json()
+
+
+_JAX_CHOICES = """
+import json, sys
+from repro.core import csr as C
+from repro.serve import DispatchPolicy
+from repro.tune import TunedPolicy
+from repro.tune.model import load_model
+
+model = load_model(sys.argv[1])
+out = []
+for corpus, n in json.loads(sys.argv[2]):
+    g = (C.random_csr_graph(n, 3 * n, seed=4 * n) if corpus == "sparse"
+         else C.road_like_csr_graph(n, seed=n) if corpus == "road"
+         else C.skewed_hub_csr_graph(n, seed=n))
+    row = {}
+    for name, pol in (("base", DispatchPolicy(nprocs=2)),
+                      ("tuned", TunedPolicy(model, nprocs=2))):
+        assert pol.nprocs == 2
+        ch = pol.choose(g, kind="single")
+        row[name] = [ch.engine, ch.nprocs, ch.via,
+                     None if ch.delta is None else float(ch.delta),
+                     ch.batch_cap]
+    out.append(row)
+print("CHOICES=" + json.dumps(out))
+"""
+
+
+def test_tune_bench_two_rank_legs_choose_as_jax(two_rank_calibration,
+                                               tmp_path):
+    """The P = 2 legs run on 2 gloo ranks; each policy's choice equals
+    JAX's at nprocs=2 on the same model (taken in a child with 2 forced
+    host devices: the choice is pure and runs no JAX sharded engine)."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.benchmarks import tune_bench
+
+    out = tmp_path / "tune.json"
+    tune_bench.run(smoke=True, repeats=1, devices=2,
+                   calibration=two_rank_calibration, out=str(out),
+                   device=CPU)
+    doc = json.load(open(out))
+    assert doc["gate_tune"]["pass"] and doc["meta"]["devices"] == 2
+    rows = doc["results"]
+    assert [r["nprocs"] for r in rows] == [1, 2] * len(tune_bench.SMOKE_LEGS)
+    assert all(r["agrees_bitwise"] and r["agrees_serial"] for r in rows)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-c", _JAX_CHOICES, two_rank_calibration,
+         json.dumps(tune_bench.SMOKE_LEGS)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    jax_rows = json.loads(res.stdout.split("CHOICES=")[1])
+    for mine, theirs in zip([r for r in rows if r["nprocs"] == 2], jax_rows):
+        for name in ("base", "tuned"):
+            got = mine[name]
+            assert [got["engine"], got["nprocs"], got["via"], got["delta"],
+                    got["batch_cap"]] == theirs[name], (mine["corpus"],
+                                                        mine["n"], name)
 
 
 def test_calibration_defaults_to_cuda_and_raises_without_a_gpu(tmp_path):
