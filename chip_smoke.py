@@ -118,7 +118,17 @@ the kernels' operation bounds use them) and then:
    ``table2_sparse_csr --quick`` into a temporary directory, every CSV row
    with finite times, ``ell_relax``, ``frontier_relax``, ``bucket_relax``
    and ``relax_matvec`` launched by the pipeline; one ``{"paper": ...}``
-   line.
+   line;
+13. the attention-only LMs (:func:`lm_phase`), in their own launch window
+   (they launch none of the six kernels: JAX's attention is einsum +
+   softcap + mask + softmax, with no Pallas kernel): gemma2-2b at full
+   width in bf16, random parameters drawn on the card, served through
+   ``repro_torch.launch.serve.serve`` at the JAX driver's defaults (8
+   requests, batch 4, prompt 32, gen 16), then one 8192-token prompt past
+   its 4096-token window; the same widths in f32 with prefill + decode
+   against the forward pass and 512-query chunks against none, and the
+   gemma2-2b and seamless-m4t smoke configs on the card against the CPU;
+   one ``{"lm": ...}`` line a part.
 
 It prints the card, the measured rates, one JSON line per CSR-kernel
 shape, per engine run, per dynamic batch size, per serve trace, per obs
@@ -1863,6 +1873,249 @@ def paper_phase(device, wrappers: dict, lines: list) -> None:
         pipelines=pipelines, pipeline_launches=moved)})
 
 
+#: the LM phase: gemma2-2b (serve_batch's default arch) at full width,
+#: served at the JAX driver's defaults; a prompt past its 4096-token window
+#: (so attention runs in 512-query chunks); the f32 checks' bound (JAX's
+#: decode == forward bound, tests/test_models.py:95) and the smoke configs
+#: held CUDA against CPU
+LM_ARCH = "gemma2-2b"
+LM_SERVE = dict(requests=8, batch=4, prompt_len=32, gen=16)
+LM_LONG_PROMPT = 8192
+LM_LONG_GEN = 16
+LM_F32_TOL = 2e-3
+LM_CPU_ARCHS = ("gemma2-2b", "seamless-m4t-medium")
+LM_CPU_TOL = 1e-4
+LM_REPS = 10
+
+
+def event_call(fn) -> tuple:
+    """``fn()`` and its time in ms by CUDA events, host launch gaps
+    included (no spin: a step that waits on the host shows it)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def event_ms(fn, reps: int) -> float:
+    """Median of ``event_call(fn)``'s times over ``reps`` calls after one
+    warm-up call."""
+    fn()
+    return statistics.median(event_call(fn)[1] for _ in range(reps))
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_to(tree, device):
+    """A parameter tree moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def lm_teacher_forced(T, params, tokens, cfg, extras, cache_dtype) -> tuple:
+    """Prefill the first half of ``tokens`` and decode the rest teacher
+    forced: (the prefill's and every step's logits, the forward pass's
+    logits at the same positions, its hidden states)."""
+    import torch
+
+    x, _, _ = T.forward(params, tokens, cfg, **extras)
+    full = T.logits_from_hidden(params, x, cfg)
+    half = tokens.shape[1] // 2
+    logits, caches, pos = T.prefill(params, tokens[:, :half], cfg,
+                                    max_len=tokens.shape[1],
+                                    cache_dtype=cache_dtype, **extras)
+    steps = [logits]
+    dkw = ({"image_embeds": extras["image_embeds"]}
+           if "image_embeds" in extras else {})
+    for t in range(half, tokens.shape[1]):
+        logits, caches, pos = T.decode_step(params, tokens[:, t:t + 1], pos,
+                                            caches, cfg, **dkw)
+        steps.append(logits)
+    return torch.stack(steps, 1), full[:, half - 1:], x
+
+
+def lm_phase(device, lines: list, cfg=None) -> None:
+    """The attention-only LMs on the card (no kernel of the port is on
+    this path: attention is JAX's einsum + softcap + mask + softmax).
+
+    1. ``cfg`` (gemma2-2b at full width, bf16, random parameters drawn on
+       the card) served through ``repro_torch.launch.serve.serve`` at the
+       JAX driver's defaults, every logit finite and every token in range;
+       prefill and decode step timed by CUDA events after a warm-up (the
+       host's launch gaps included), and once each under the profiler
+       (device busy time, the top ops);
+    2. one prompt of ``LM_LONG_PROMPT`` tokens (past the sliding window:
+       512-query chunks), timed and profiled, then ``LM_LONG_GEN`` decode
+       steps, timed, its peak memory;
+    3. the same widths in f32 (f32 cache, no TF32): prefill + decode
+       against the forward pass, and 512-query chunks against none over
+       the last 16 positions of the long prompt, each within
+       ``LM_F32_TOL``;
+    4. the smoke configs of ``LM_CPU_ARCHS`` on CUDA against the CPU, f32:
+       forward, logits, prefill and decode within ``LM_CPU_TOL``.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls would run in TF32")
+    cfg = cfg or get_config(LM_ARCH)
+    base = torch.cuda.memory_allocated(device)
+    peak = lambda: torch.cuda.max_memory_allocated(device) - base
+    rng = np.random.default_rng(0)
+
+    # 1. serve at full width, bf16
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device).manual_seed(0),
+                           device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats(device)
+    sv = LM_SERVE
+    queue = S.make_queue(cfg, sv["requests"], sv["prompt_len"], rng)
+    bad = []
+
+    def on_logits(bi, step, logits):
+        if not torch.isfinite(logits).all():
+            bad.append((bi, step))
+
+    summary = S.serve(params, cfg, queue, batch=sv["batch"], gen=sv["gen"],
+                      max_len=sv["prompt_len"] + sv["gen"],
+                      on_logits=on_logits)
+    check(not bad, f"non-finite logits at (batch, step) {bad[:4]}")
+    ids = np.array([r.generated for r in queue])
+    check(ids.shape == (sv["requests"], sv["gen"])
+          and ((ids >= 0) & (ids < cfg.vocab_size)).all(),
+          f"served tokens out of range or missing: shape {ids.shape}")
+    serve_peak = peak()
+    toks = torch.from_numpy(np.stack(
+        [r.prompt for r in queue[:sv["batch"]]])).to(device)
+    max_len = sv["prompt_len"] + sv["gen"]
+    _, caches, pos = T.prefill(params, toks, cfg, max_len=max_len)
+    nxt = toks[:, -1:]
+    prefill = lambda: T.prefill(params, toks, cfg, max_len=max_len)
+    step = lambda: T.decode_step(params, nxt, pos, caches, cfg)
+    lines.append({"lm": dict(
+        part="serve", arch=cfg.name, dtype=cfg.param_dtype,
+        params=sum(t.numel() for t in tree_leaves(params)),
+        param_count=cfg.param_count(), param_bytes=param_bytes,
+        init_s=init_s, **sv, tokens=summary["tokens"],
+        wall_s=summary["wall_s"], tokens_per_s=summary["tokens_per_s"],
+        batch_latency_s=summary["batch_latency_s"],
+        prefill_s=summary["prefill_s"],
+        decode_step_s_median=statistics.median(summary["decode_step_s"]),
+        prefill_ms=event_ms(prefill, LM_REPS),
+        prefill_profile=profile_call(prefill),
+        decode_ms=event_ms(step, LM_REPS),
+        decode_profile=profile_call(step),
+        peak_bytes=serve_peak, first_tokens=ids[:, :4].tolist())})
+    del caches
+
+    # 2. a long prompt, past the window
+    torch.cuda.reset_peak_memory_stats(device)
+    S_long = LM_LONG_PROMPT
+    long_toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, S_long))).to(device)
+    max_len = S_long + LM_LONG_GEN
+    long_prefill = lambda: T.prefill(params, long_toks, cfg, max_len=max_len)
+    prefill_ms = event_ms(long_prefill, 2)
+    prefill_profile = profile_call(long_prefill)
+    logits, caches, pos = T.prefill(params, long_toks, cfg, max_len=max_len)
+    steps_ms = []
+    for _ in range(LM_LONG_GEN):
+        nxt = torch.argmax(logits, -1)[:, None]
+        (logits, caches, pos), ms = event_call(
+            lambda: T.decode_step(params, nxt, pos, caches, cfg))
+        steps_ms.append(ms)
+        check(bool(torch.isfinite(logits).all()),
+              "non-finite logits decoding the long prompt")
+    lines.append({"lm": dict(
+        part="long_prompt", arch=cfg.name, dtype=cfg.param_dtype,
+        prompt=S_long, gen=LM_LONG_GEN, window=cfg.sliding_window,
+        q_chunk=T._auto_q_chunk(S_long), prefill_ms=prefill_ms,
+        prefill_profile=prefill_profile,
+        decode_ms_median=statistics.median(steps_ms),
+        decode_ms_first_last=[steps_ms[0], steps_ms[-1]],
+        peak_bytes=peak())})
+    del params, caches, logits
+    torch.cuda.empty_cache()
+
+    # 3. the same widths in f32
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params = T.init_params(cfg32, torch.Generator(device).manual_seed(0),
+                           device)
+    torch.cuda.reset_peak_memory_stats(device)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (2, 32))).to(device)
+    got, want, _ = lm_teacher_forced(T, params, toks, cfg32, {},
+                                     torch.float32)
+    dec_err = float((got - want).abs().max())
+    check(dec_err < LM_F32_TOL,
+          f"f32 prefill + decode vs forward: {dec_err} >= {LM_F32_TOL}")
+    out = {}
+    for qc in (0, 512):
+        x, _, _ = T.forward(params, long_toks, cfg32, q_chunk=qc)
+        out[qc] = T.logits_from_hidden(params, x[:, -16:], cfg32)
+        del x
+    chunk_err = float((out[0] - out[512]).abs().max())
+    check(chunk_err < LM_F32_TOL,
+          f"f32 q_chunk 512 vs 0: {chunk_err} >= {LM_F32_TOL}")
+    lines.append({"lm": dict(
+        part="f32_consistency", arch=cfg.name, dtype="float32",
+        param_bytes=sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params)),
+        decode_vs_forward_max_abs_err=dec_err,
+        q_chunk_512_vs_0_max_abs_err=chunk_err, prompt=S_long,
+        tol=LM_F32_TOL, peak_bytes=peak())})
+    del params, out
+    torch.cuda.empty_cache()
+
+    # 4. smoke configs, CUDA against CPU
+    errs = {}
+    for arch in LM_CPU_ARCHS:
+        small = make_smoke(get_config(arch))
+        host = T.init_params(small, torch.Generator().manual_seed(0), "cpu")
+        card = tree_to(host, device)
+        toks = torch.from_numpy(rng.integers(0, small.vocab_size, (2, 16)))
+        extras = S.make_extras(small, 2, 16, rng, "cpu")
+        res = {}
+        for dev, p in (("cpu", host), (device, card)):
+            ex = {k: v.to(dev) for k, v in extras.items()}
+            res[str(dev)] = lm_teacher_forced(T, p, toks.to(dev), small, ex,
+                                              torch.float32)
+        errs[arch] = {name: float((a.cpu() - b).abs().max())
+                      for name, a, b in zip(("decode", "logits", "hidden"),
+                                            res[str(device)], res["cpu"])}
+        worst = max(errs[arch].values())
+        check(worst <= LM_CPU_TOL,
+              f"{arch} smoke, CUDA vs CPU: {errs[arch]} > {LM_CPU_TOL}")
+    lines.append({"lm": dict(part="cuda_vs_cpu", archs=list(LM_CPU_ARCHS),
+                             max_abs_err=errs, tol=LM_CPU_TOL)})
+
+
 def serial_check(device) -> dict:
     """The paper's Alg. 1 on the device against bellman_csr, bitwise."""
     from repro_torch.core.csr import sparse_csr_graph
@@ -2015,7 +2268,8 @@ def main() -> int:
                     {name: registry.get(name)
                      for name in ("sparse-4M", "hub-1M")},
                     device, wrappers, lines)),
-                ("paper", lambda: paper_phase(device, wrappers, lines))):
+                ("paper", lambda: paper_phase(device, wrappers, lines)),
+                ("lm", lambda: lm_phase(device, lines))):
             t0 = time.perf_counter()
             torch.cuda.synchronize()
             for fn in wrappers.values():

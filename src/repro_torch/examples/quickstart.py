@@ -1,13 +1,13 @@
-"""Quickstart: the paper's SSSP engines through the public API, in seconds
-— the SSSP part of the JAX package's ``examples/quickstart.py`` (its LM
-part comes with the training substrate, ROADMAP A.13).
+"""Quickstart: the paper's SSSP engines and a tiny LM through the public
+API, in seconds — the port of the JAX package's ``examples/quickstart.py``.
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 
 ``serial`` (Alg. 1), ``bellman`` (Alg. 3/4) and ``bellman_kernel`` (the
 min-plus matvec kernel on CUDA) on one graph, then ``multisource``; every
-distance row is checked bitwise against ``serial``'s.  Returns the
-distances by engine.
+distance row is checked bitwise against ``serial``'s.  Then gemma3-1b at
+smoke width: one ``train_loss``, a ``prefill`` and 5 greedy
+``decode_step``s.  Returns the distances by engine.
 """
 from __future__ import annotations
 
@@ -17,8 +17,12 @@ import numpy as np
 
 
 def main(argv=None) -> dict:
+    import torch
+
+    from repro_torch.configs import get_config, make_smoke
     from repro_torch.core import graph as G
     from repro_torch.core.api import resolve_device, shortest_paths
+    from repro_torch.models import transformer as T
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
@@ -54,7 +58,26 @@ def main(argv=None) -> dict:
         if res.dist[i].tobytes() != ref.tobytes():
             raise SystemExit(f"quickstart: multisource row {s} differs "
                              f"from serial")
-    print("\nquickstart OK: every row bitwise equal to serial's")
+    print("  every row bitwise equal to serial's")
+
+    # --- 3. a model from the assigned-architecture zoo --------------------
+    cfg = make_smoke(get_config("gemma3-1b"))
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32))).to(dev)
+    loss, metrics = T.train_loss(params, {"tokens": tokens,
+                                          "labels": tokens}, cfg)
+    print(f"\n{cfg.name}: one train-loss eval = {float(loss):.3f}")
+
+    logits, caches, pos = T.prefill(params, tokens, cfg, max_len=40)
+    tok = torch.argmax(logits, -1)[:, None]
+    for _ in range(5):
+        logits, caches, pos = T.decode_step(params, tok, pos, caches, cfg)
+        tok = torch.argmax(logits, -1)[:, None]
+    print(f"decoded 5 tokens, cache pos now {pos.cpu().numpy()}")
+    if not (torch.isfinite(loss) and torch.isfinite(logits).all()):
+        raise SystemExit("quickstart: the LM gave non-finite values")
+    print("\nquickstart OK")
     return dists
 
 

@@ -5,7 +5,8 @@ relax_matmul also at n = 1025 to 1028 (every residue mod 4) and S in
 {1, 7, 8, 9, 17} with all-INF rows and tiles, so ragged tails, u-split
 boundaries and ragged source tiles are covered; the CSR pull kernels and
 the frontier push at every lane-group width, on graphs with rows that
-their whole-warp path takes.
+their whole-warp path takes.  The attention-only LMs' smoke configs on the
+card against the CPU, f32 without TF32, within 1e-4.
 
 Marked ``cuda``; every test skips without a CUDA GPU.  On a machine with
 one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -373,3 +374,49 @@ def test_tuned_query_on_the_card_launches_its_kernel_twin(cuda, engine,
     assert kernel.launches > before
     ref = shortest_paths(cg, 0, engine="serial", device="cpu")
     assert res.dist.tobytes() == ref.dist.tobytes()
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_lm_smoke_on_the_card_matches_the_cpu(cuda, arch):
+    """One parameter draw on the CPU, copied to the card; the forward
+    pass, its logits and a teacher-forced prefill + decode (f32 cache) on
+    both devices within 1e-4, as chip_smoke's LM phase holds them."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.launch.serve import make_extras
+    from repro_torch.models import transformer as T
+
+    assert torch.get_float32_matmul_precision() == "highest"
+    cfg = make_smoke(get_config(arch))
+    host = T.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    extras = make_extras(cfg, 2, 16, rng, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        params = host if dev == "cpu" else _tree_to(host, dev)
+        ex = {k: v.to(dev) for k, v in extras.items()}
+        t = toks.to(dev)
+        x, _, _ = T.forward(params, t, cfg, **ex)
+        full = T.logits_from_hidden(params, x, cfg)
+        logits, caches, pos = T.prefill(params, t[:, :8], cfg, max_len=16,
+                                        cache_dtype=torch.float32, **ex)
+        steps = [logits]
+        dex = ({"image_embeds": ex["image_embeds"]}
+               if "image_embeds" in ex else {})
+        for i in range(8, 16):
+            logits, caches, pos = T.decode_step(params, t[:, i:i + 1], pos,
+                                                caches, cfg, **dex)
+            steps.append(logits)
+        out[str(dev)] = [x, full, torch.stack(steps, 1)]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert float((a - b.cpu()).abs().max()) <= 1e-4
+    assert float((out["cpu"][2] - out["cpu"][1][:, 7:]).abs().max()) < 2e-3
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)

@@ -1,9 +1,9 @@
-"""The port's SSSP examples (repro_torch.examples) on the CPU: each runs
+"""The port's examples (repro_torch.examples) on the CPU: each runs
 ``main([..., "--device", "cpu"])`` and completes its own checks, and each
 prints what the JAX package's example prints, device stamps aside.
 
 - ``quickstart``: every engine's distances equal JAX's ``serial`` on JAX's
-  quickstart graph, bitwise.
+  quickstart graph, bitwise; its LM part prints JAX's lines.
 - ``sssp_pipeline``: every engine against the oracle; at one CPU rank the
   sharded engines are skipped with the reason printed (and the engines
   that need the n x n matrix above ``DENSE_CAP``); on two gloo ranks they
@@ -11,6 +11,7 @@ prints what the JAX package's example prints, device stamps aside.
 - ``sssp_dynamic_demo`` / ``sssp_serve_demo``: the same repair, serving
   and spot-check lines as JAX's demos.
 """
+import re
 import runpy
 from pathlib import Path
 
@@ -42,7 +43,14 @@ def test_quickstart_matches_jax_serial(capsys):
     for engine in ("serial", "bellman", "bellman_kernel"):
         assert got[engine].tobytes() == want, engine
     assert got["multisource"][0].tobytes() == want
-    assert "quickstart OK" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "quickstart OK" in out
+    # the LM part: gemma3-1b smoke, one train-loss eval, prefill of 32
+    # tokens and 5 decode steps (JAX's quickstart prints the same lines)
+    loss = re.search(r"gemma3-1b-smoke: one train-loss eval = ([0-9.]+)",
+                     out)
+    assert loss and 0 < float(loss.group(1)) < 20
+    assert "decoded 5 tokens, cache pos now [37 37]" in out
 
 
 def test_pipeline_one_cpu_rank_skips_with_reasons(capsys, monkeypatch):

@@ -19,6 +19,13 @@ PAPER_MODULES = tuple(
                                  "make_experiments_md")]
     + [f"examples.{m}" for m in ("quickstart", "sssp_pipeline",
                                  "sssp_dynamic_demo", "sssp_serve_demo")])
+#: the LM configs, the single-device sharding hooks, the attention-only
+#: models and LM serving
+LM_MODULES = (
+    ("configs", "configs.base", "configs.gemma2_2b", "sharding.rules")
+    + tuple(f"models.{m}" for m in ("common", "mlp", "attention", "blocks",
+                                    "transformer", "convert"))
+    + ("launch.serve", "examples.serve_batch"))
 
 
 def _env():
@@ -38,14 +45,18 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
         "print(bad)\n"
         "print(sorted(k for k in sys.modules if k.startswith("
-        "('repro_torch.examples.', 'repro_torch.benchmarks.'))))\n")
+        "('repro_torch.examples.', 'repro_torch.benchmarks.'))))\n"
+        "print(sorted(k for k in sys.modules if k.startswith("
+        "'repro_torch.')))\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")
-    assert int(out[0]) >= 79                   # every module was imported
+    assert int(out[0]) >= 102                  # every module was imported
     assert out[1] == "[]"
     for name in PAPER_MODULES:
         assert f"'repro_torch.{name}'" in out[2], name
+    for name in LM_MODULES:
+        assert f"'repro_torch.{name}'" in out[3], name
 
 
 def _imported_roots(path: Path):
@@ -61,8 +72,10 @@ def _imported_roots(path: Path):
 def test_no_source_file_imports_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
-    for name in PAPER_MODULES:
-        assert PKG / (name.replace(".", "/") + ".py") in files, name
+    for name in PAPER_MODULES + LM_MODULES:
+        path = PKG / name.replace(".", "/")
+        assert path.with_suffix(".py") in files \
+            or path / "__init__.py" in files, name
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, f
