@@ -31,8 +31,8 @@ the kernels' operation bounds use them) and then:
    2048-vertex graph;
 4. the dynamic-graph path on sparse-4M (:func:`dynamic_phase`): a
    ``DynamicGraph`` staged on the card, ``solve_dynamic`` held against the
-   ``frontier`` engine, and for mutation batches of 1 and 8 edges 2 + 12
-   rounds of churn, each repaired (``repair_sssp``, chained) and re-solved
+   ``frontier`` engine, and for mutation batches of 8 edges
+   (:data:`DYN_BATCH_SIZES`) 2 + 12 rounds of churn, each repaired (``repair_sssp``, chained) and re-solved
    in full, bitwise equal every round, the last round also held against
    the snapshot's ``frontier`` solve and scipy; one line a batch size with
    the median walls, work counters and cone;
@@ -52,9 +52,9 @@ the kernels' operation bounds use them) and then:
    ``bellman_csr_sharded`` and ``frontier_sharded`` (and a ``target=``
    query) bitwise equal to ``frontier_kernel``, ``multisource_csr_sharded``
    with 16 sources row by row to per-source solves; ``dijkstra_sharded``
-   with each MINLOC collective on dense-2000 and ``packed`` on
-   paper-sparse-40000, ``bellman_sharded`` and the sharded ``multisource``
-   there, against ``bellman_kernel``, ``serial`` and ``multisource``; one
+   with each MINLOC collective on dense-2000, ``bellman_sharded`` and the
+   sharded ``multisource`` on paper-sparse-40000, against
+   ``bellman_kernel``, ``serial`` and ``multisource``; one
    ``{"sharded": ...}`` line a run (wall, sweeps, edges, collectives, the
    single-device wall); ``ell_relax`` and ``frontier_relax`` must launch
    in the window.  Then the kernels' two sharded modes
@@ -113,22 +113,26 @@ the kernels' operation bounds use them) and then:
    hold the n × n matrix),
    ``sssp_dynamic_demo`` and ``sssp_serve_demo`` with their own checks,
    then ``repro_torch.benchmarks.run --quick --ranks-device cpu`` (its
-   P-rank sweeps cut to P ≤ 2 and Table III to n = 100,
-   :data:`PAPER_CUTS`) and
+   P-rank sweeps cut to P ≤ 2, weak scaling to ``frontier_sharded`` and
+   Table III to its (100, 300) leg, :data:`PAPER_CUTS`) and
    ``table2_sparse_csr --quick`` into a temporary directory, every CSV row
    with finite times, ``ell_relax``, ``frontier_relax``, ``bucket_relax``
    and ``relax_matvec`` launched by the pipeline; one ``{"paper": ...}``
    line;
-13. the attention-only LMs (:func:`lm_phase`), in their own launch window
-   (they launch none of the six kernels: JAX's attention is einsum +
-   softcap + mask + softmax, with no Pallas kernel): gemma2-2b at full
-   width in bf16, random parameters drawn on the card, served through
-   ``repro_torch.launch.serve.serve`` at the JAX driver's defaults (8
-   requests, batch 4, prompt 32, gen 16), then one 8192-token prompt past
-   its 4096-token window; the same widths in f32 with prefill + decode
-   against the forward pass and 512-query chunks against none, and the
-   gemma2-2b and seamless-m4t smoke configs on the card against the CPU;
-   one ``{"lm": ...}`` line a part.
+13. the LMs (:func:`lm_phase`), in their own launch window (they launch
+   none of the six kernels: no A.13 module of JAX's has a Pallas
+   kernel): gemma2-2b at full width in bf16, random parameters drawn on
+   the card, served through ``repro_torch.launch.serve.serve`` at the JAX
+   driver's defaults (8 requests, batch 4, prompt 32, gen 16), then one
+   8192-token prompt past its 4096-token window; the same widths in f32
+   with prefill + decode against the forward pass and 512-query chunks
+   against none; six archs' smoke configs on the card against the CPU
+   (forward, decode and a gradient); qwen2-moe (experts, 4 dead) and
+   zamba2 (Mamba2 + the shared block, also over the 8192-token prompt)
+   served at full width, and the serve driver on mamba2-130m; mamba2-130m
+   trained at full width through the training driver, crashed at step 12
+   and restarted, its replayed steps within 1e-6 of the clean run's; one
+   ``{"lm": ...}`` line a part.
 
 It prints the card, the measured rates, one JSON line per CSR-kernel
 shape, per engine run, per dynamic batch size, per serve trace, per obs
@@ -142,6 +146,8 @@ without a CUDA GPU.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -174,6 +180,14 @@ MODE_NPROCS = 4
 MODE_BLOCK = 2
 KERNEL_REPS = 20
 PLAIN_REPS = 5
+#: the dynamic phase runs the dynamic bench's larger batch size only (its
+#: B = 1 doubled the phase's fixed cost: a 4M-vertex snapshot, its
+#: frontier solve and scipy's)
+DYN_BATCH_SIZES = (8,)
+#: seconds by phase on the host clock, and scipy's oracle solves summed
+#: across phases (``scipy_oracle``): printed as one ``{"clock_s": ...}``
+#: line, so a run that nears its time limit shows where to cut
+CLOCK: dict = {}
 #: device clock cycles of the spin before each timed call (about 1 ms on an
 #: H100 80GB HBM3 at 700 W, whose SM clock peaks at 1.98 GHz), longer than
 #: the host takes to queue one wrapper call
@@ -205,15 +219,15 @@ SERVE_LANDMARKS = 8
 SERVE_MAX_BATCH = 16
 SERVE_CACHE_ROWS = 64
 SERVE_OVERLAY = 512
-SERVE_QUERIES = 128
+SERVE_QUERIES = 64
 SERVE_RATE = 2000.0
-CHURN_EVENTS = 64
+CHURN_EVENTS = 32
 #: the sharded serving phase: P gloo ranks sharing the card, a shard
 #: threshold between its two graphs (sparse-4M shards, hub-1M does not),
 #: each trace's length and the lone p2p queries served after the traces
 SHARDED_SERVE_P = 4
 SHARDED_SERVE_THRESHOLD = 2_000_000
-SHARDED_SERVE_QUERIES = 64
+SHARDED_SERVE_QUERIES = 32
 SHARDED_SERVE_LONE_P2P = 4
 #: the kernel each kernel engine launches
 KERNEL_OF = {"bellman_csr_kernel": "ell_relax",
@@ -610,7 +624,20 @@ def dense_kernel_phase(g, device, rng) -> dict:
 def oracle(cg, sources):
     from repro_torch.launch.sssp_run import scipy_distances
 
-    return scipy_distances(cg, sources)
+    t0 = time.perf_counter()
+    out = scipy_distances(cg, sources)
+    CLOCK["scipy_oracle"] = (CLOCK.get("scipy_oracle", 0.0)
+                             + time.perf_counter() - t0)
+    return out
+
+
+def clocked(name: str, fn):
+    """``fn()``, its host-clock seconds added to ``CLOCK[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn()
+    finally:
+        CLOCK[name] = CLOCK.get(name, 0.0) + time.perf_counter() - t0
 
 
 def check_oracle(name: str, dist, ref) -> float:
@@ -818,9 +845,10 @@ def engine_phase(graphs: dict, device, walls: dict, wrappers: dict,
 
 
 def dynamic_phase(name: str, cg, device, wrappers: dict) -> list:
-    """The dynamic-graph path on ``cg``, with the dynamic bench's batch
-    sizes, rounds and overlay capacity (repro_torch.benchmarks.
-    dynamic_bench): a ``DynamicGraph`` staged on the card;
+    """The dynamic-graph path on ``cg``, with the dynamic bench's rounds
+    and overlay capacity (repro_torch.benchmarks.dynamic_bench) and the
+    batch sizes of :data:`DYN_BATCH_SIZES`: a ``DynamicGraph`` staged on
+    the card;
     ``solve_dynamic`` at version 0 held bitwise against the ``frontier``
     engine (dist, pred and counters); then for each batch size B, on a
     fresh overlay, the bench's rounds of B ``EdgeChurn`` edits, each
@@ -848,7 +876,7 @@ def dynamic_phase(name: str, cg, device, wrappers: dict) -> list:
     lines = []
     before = launch_counts(wrappers)
     ref, _ = run_engine(cg, 0, "frontier", device)
-    for B in DB.BATCH_SIZES:
+    for B in DYN_BATCH_SIZES:
         dyn = DynamicGraph(cg, overlay_capacity=DB.OVERLAY_CAPACITY)
         _, stage = timed(lambda: dyn.dyn_ops(device=device))
         prev, wall0 = timed(lambda: solve_dynamic(dyn, 0, device=device))
@@ -1269,8 +1297,8 @@ def sharded_engines(graphs: dict, dense: dict, refs: dict, walls: dict,
     ``target=`` query against ``frontier_kernel``, and
     ``multisource_csr_sharded`` with 16 sources row by row against
     per-source ``frontier_kernel`` solves; ``dijkstra_sharded`` with each
-    MINLOC on dense-2000 and with ``packed`` on paper-sparse-40000 against
-    ``bellman_kernel``'s dist and ``serial``'s pred; ``bellman_sharded``
+    MINLOC on dense-2000 against ``bellman_kernel``'s dist and
+    ``serial``'s pred; ``bellman_sharded``
     and the sharded ``multisource`` (8 sources) on paper-sparse-40000
     against ``bellman_kernel`` and ``multisource``.  One ``{"sharded":
     ...}`` line an engine run: wall, sweeps, edges, the collectives of the
@@ -1339,17 +1367,17 @@ def sharded_engines(graphs: dict, dense: dict, refs: dict, walls: dict,
                   f"multisource_csr_sharded row {i} differs from "
                   f"frontier_kernel from {src}")
 
-        for name, minlocs in ((f"dense-{DENSE_DENSE_N}",
-                               ("allgather", "pmin", "packed")),
-                              (f"paper-sparse-{DENSE_SPARSE_N}", ("packed",))):
-            ref = refs[name]
-            for minloc in minlocs:
-                r = run(name, dense[name], 0, "dijkstra_sharded", "serial",
-                        minloc=minloc)
-                check(r.dist.tobytes() == ref["bellman_kernel"].dist.tobytes()
-                      and np.array_equal(r.pred, ref["serial"].pred),
-                      f"{name} dijkstra_sharded ({minloc}): dist differs "
-                      f"from bellman_kernel or pred from serial")
+        # Alg. 2 takes one MINLOC collective a vertex: n = 40,000 of them
+        # cost ≈ 50 s on a group of one, so it runs at dense-2000 only
+        name = f"dense-{DENSE_DENSE_N}"
+        ref = refs[name]
+        for minloc in ("allgather", "pmin", "packed"):
+            r = run(name, dense[name], 0, "dijkstra_sharded", "serial",
+                    minloc=minloc)
+            check(r.dist.tobytes() == ref["bellman_kernel"].dist.tobytes()
+                  and np.array_equal(r.pred, ref["serial"].pred),
+                  f"{name} dijkstra_sharded ({minloc}): dist differs "
+                  f"from bellman_kernel or pred from serial")
         name = f"paper-sparse-{DENSE_SPARSE_N}"
         ref = refs[name]
         r = run(name, dense[name], 0, "bellman_sharded", "bellman_kernel")
@@ -1757,12 +1785,14 @@ PIPELINE_RUNS = ((100_000, 300_000), (2000, 6000))
 #: process start on the card machine's host), and Table III's n = 1000
 #: legs hold Alg. 2 on 8 gloo ranks for ≈ 20 s a solve, so the quick run's
 #: 30 legs take ≈ 20 min there.  Kept: P = 1 and 2 of Table IV and of weak
-#: scaling (each efficiency a real ratio) and Table III's n = 100 pair (its
-#: density ratio); the tables' full numbers come from ``benchmarks.run`` on
-#: its own (PERF.md §5)
-PAPER_CUTS = (("table3_density", "PAIRS", slice(2, 4)),
+#: scaling (each efficiency a real ratio), weak scaling for
+#: ``frontier_sharded`` only (Table IV's legs drive the two dense engines),
+#: and Table III's (100, 300) leg; the tables' full numbers come from
+#: ``benchmarks.run`` on its own (PERF.md §5)
+PAPER_CUTS = (("table3_density", "PAIRS", slice(2, 3)),
               ("table4_scaling", "PROCS", slice(0, 2)),
-              ("weak_scaling", "PROCS", slice(0, 2)))
+              ("weak_scaling", "PROCS", slice(0, 2)),
+              ("weak_scaling", "ENGINES", slice(3, 4)))
 #: the paper benches' CSVs: (file, its time columns)
 PAPER_CSVS = {
     "table2_sparse_csr.csv": ("bellman_s", "bellman_csr_s"),
@@ -1883,9 +1913,23 @@ LM_SERVE = dict(requests=8, batch=4, prompt_len=32, gen=16)
 LM_LONG_PROMPT = 8192
 LM_LONG_GEN = 16
 LM_F32_TOL = 2e-3
-LM_CPU_ARCHS = ("gemma2-2b", "seamless-m4t-medium")
+LM_CPU_ARCHS = ("gemma2-2b", "seamless-m4t-medium", "qwen2-moe-a2.7b",
+                "kimi-k2-1t-a32b", "mamba2-130m", "zamba2-2.7b")
 LM_CPU_TOL = 1e-4
 LM_REPS = 10
+#: the MoE and Mamba2 LMs at full width (served as gemma2-2b is; zamba2,
+#: a long-context arch, also over the 8192-token prompt), and the training
+#: run: mamba2-130m at full width through the training driver, the run
+#: crashed at step 12 and restarted from its step-10 checkpoint, whose
+#: steps 10-19 must replay the clean run's within JAX's restart bound
+#: (tests/test_integration.py:108)
+LM_MOE_ARCH = "qwen2-moe-a2.7b"
+LM_SSM_ARCH = "zamba2-2.7b"
+LM_SSM_DRIVER_ARCH = "mamba2-130m"
+LM_TRAIN = dict(arch="mamba2-130m", steps=20, batch=8, seq=512,
+                ckpt_every=5, fail_at=12)
+LM_RESTART_RTOL = 1e-6
+LM_TRAIN_REPS = 3
 
 
 def event_call(fn) -> tuple:
@@ -1948,52 +1992,16 @@ def lm_teacher_forced(T, params, tokens, cfg, extras, cache_dtype) -> tuple:
     return torch.stack(steps, 1), full[:, half - 1:], x
 
 
-def lm_phase(device, lines: list, cfg=None) -> None:
-    """The attention-only LMs on the card (no kernel of the port is on
-    this path: attention is JAX's einsum + softcap + mask + softmax).
-
-    1. ``cfg`` (gemma2-2b at full width, bf16, random parameters drawn on
-       the card) served through ``repro_torch.launch.serve.serve`` at the
-       JAX driver's defaults, every logit finite and every token in range;
-       prefill and decode step timed by CUDA events after a warm-up (the
-       host's launch gaps included), and once each under the profiler
-       (device busy time, the top ops);
-    2. one prompt of ``LM_LONG_PROMPT`` tokens (past the sliding window:
-       512-query chunks), timed and profiled, then ``LM_LONG_GEN`` decode
-       steps, timed, its peak memory;
-    3. the same widths in f32 (f32 cache, no TF32): prefill + decode
-       against the forward pass, and 512-query chunks against none over
-       the last 16 positions of the long prompt, each within
-       ``LM_F32_TOL``;
-    4. the smoke configs of ``LM_CPU_ARCHS`` on CUDA against the CPU, f32:
-       forward, logits, prefill and decode within ``LM_CPU_TOL``.
-    """
-    import dataclasses
-
+def lm_serve_record(S, T, params, cfg, rng, peak) -> dict:
+    """``cfg``'s parameters served through ``repro_torch.launch.serve.
+    serve`` at the JAX driver's defaults (:data:`LM_SERVE`): every logit
+    finite and every token in range, ``peak()`` read after the loop; then
+    a prefill of the first batch and a decode step after it, each timed by
+    CUDA events after a warm-up (the host's launch gaps included) and
+    profiled once (device busy time, the top ops)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config, make_smoke
-    from repro_torch.launch import serve as S
-    from repro_torch.models import transformer as T
-
-    check(torch.get_float32_matmul_precision() == "highest"
-          and not torch.backends.cuda.matmul.allow_tf32,
-          "f32 matmuls would run in TF32")
-    cfg = cfg or get_config(LM_ARCH)
-    base = torch.cuda.memory_allocated(device)
-    peak = lambda: torch.cuda.max_memory_allocated(device) - base
-    rng = np.random.default_rng(0)
-
-    # 1. serve at full width, bf16
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device).manual_seed(0),
-                           device)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in tree_leaves(params))
-    torch.cuda.reset_peak_memory_stats(device)
     sv = LM_SERVE
     queue = S.make_queue(cfg, sv["requests"], sv["prompt_len"], rng)
     bad = []
@@ -2005,12 +2013,25 @@ def lm_phase(device, lines: list, cfg=None) -> None:
     summary = S.serve(params, cfg, queue, batch=sv["batch"], gen=sv["gen"],
                       max_len=sv["prompt_len"] + sv["gen"],
                       on_logits=on_logits)
-    check(not bad, f"non-finite logits at (batch, step) {bad[:4]}")
+    check(not bad, f"{cfg.name}: non-finite logits at (batch, step) "
+          f"{bad[:4]}")
     ids = np.array([r.generated for r in queue])
     check(ids.shape == (sv["requests"], sv["gen"])
           and ((ids >= 0) & (ids < cfg.vocab_size)).all(),
-          f"served tokens out of range or missing: shape {ids.shape}")
-    serve_peak = peak()
+          f"{cfg.name}: served tokens out of range or missing: shape "
+          f"{ids.shape}")
+    device = params["embed"]["tok"].device
+    rec = dict(
+        params=sum(t.numel() for t in tree_leaves(params)),
+        param_count=cfg.param_count(),
+        param_bytes=sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params)),
+        **sv, tokens=summary["tokens"], wall_s=summary["wall_s"],
+        tokens_per_s=summary["tokens_per_s"],
+        batch_latency_s=summary["batch_latency_s"],
+        prefill_s=summary["prefill_s"],
+        decode_step_s_median=statistics.median(summary["decode_step_s"]),
+        peak_bytes=peak())
     toks = torch.from_numpy(np.stack(
         [r.prompt for r in queue[:sv["batch"]]])).to(device)
     max_len = sv["prompt_len"] + sv["gen"]
@@ -2018,24 +2039,21 @@ def lm_phase(device, lines: list, cfg=None) -> None:
     nxt = toks[:, -1:]
     prefill = lambda: T.prefill(params, toks, cfg, max_len=max_len)
     step = lambda: T.decode_step(params, nxt, pos, caches, cfg)
-    lines.append({"lm": dict(
-        part="serve", arch=cfg.name, dtype=cfg.param_dtype,
-        params=sum(t.numel() for t in tree_leaves(params)),
-        param_count=cfg.param_count(), param_bytes=param_bytes,
-        init_s=init_s, **sv, tokens=summary["tokens"],
-        wall_s=summary["wall_s"], tokens_per_s=summary["tokens_per_s"],
-        batch_latency_s=summary["batch_latency_s"],
-        prefill_s=summary["prefill_s"],
-        decode_step_s_median=statistics.median(summary["decode_step_s"]),
-        prefill_ms=event_ms(prefill, LM_REPS),
-        prefill_profile=profile_call(prefill),
-        decode_ms=event_ms(step, LM_REPS),
-        decode_profile=profile_call(step),
-        peak_bytes=serve_peak, first_tokens=ids[:, :4].tolist())})
-    del caches
+    rec.update(prefill_ms=event_ms(prefill, LM_REPS),
+               prefill_profile=profile_call(prefill),
+               decode_ms=event_ms(step, LM_REPS),
+               decode_profile=profile_call(step),
+               first_tokens=ids[:, :4].tolist())
+    return rec
 
-    # 2. a long prompt, past the window
-    torch.cuda.reset_peak_memory_stats(device)
+
+def lm_long_record(T, params, cfg, rng) -> tuple:
+    """One :data:`LM_LONG_PROMPT`-token prompt (batch 1), its prefill timed
+    and profiled, then :data:`LM_LONG_GEN` greedy decode steps, each
+    timed, every logit finite.  Returns (the record, the prompt)."""
+    import torch
+
+    device = params["embed"]["tok"].device
     S_long = LM_LONG_PROMPT
     long_toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, S_long))).to(device)
@@ -2051,16 +2069,322 @@ def lm_phase(device, lines: list, cfg=None) -> None:
             lambda: T.decode_step(params, nxt, pos, caches, cfg))
         steps_ms.append(ms)
         check(bool(torch.isfinite(logits).all()),
-              "non-finite logits decoding the long prompt")
+              f"{cfg.name}: non-finite logits decoding the long prompt")
+    return dict(prompt=S_long, gen=LM_LONG_GEN,
+                q_chunk=T._auto_q_chunk(S_long), prefill_ms=prefill_ms,
+                prefill_profile=prefill_profile,
+                decode_ms_median=statistics.median(steps_ms),
+                decode_ms_first_last=[steps_ms[0], steps_ms[-1]]), long_toks
+
+
+class RouteLog:
+    """Wraps ``repro_torch.models.moe.route`` while it is installed: the
+    highest expert id routed to, and each call's dropped assignments (one
+    call a MoE layer)."""
+
+    def __init__(self, moe):
+        self.moe, self.route = moe, moe.route
+        self.max_id, self.drops, self.calls = -1, [], []
+
+    def __call__(self, router, xt, cfg, C):
+        r = self.route(router, xt, cfg, C)
+        self.max_id = max(self.max_id, int(r["ids"].max()))
+        self.drops.append(int((~r["keep"]).sum()))
+        self.calls.append((int(xt.shape[0] * xt.shape[1]), C))
+        return r
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def lm_moe_serve(device, lines: list, rng) -> None:
+    """qwen2-moe at full width in bf16 (64 experts, 4 of them dead padding;
+    random parameters drawn on the card) served as gemma2-2b is, no
+    assignment routed to a dead expert, and the assignments dropped at
+    capacity in a prefill of the first batch counted layer by layer."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(LM_MOE_ARCH)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device).manual_seed(0),
+                           device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    peak = lambda: torch.cuda.max_memory_allocated(device) - base
+    with RouteLog(M) as log:
+        rec = lm_serve_record(S, T, params, cfg, rng, peak)
+        log.drops, log.calls = [], []
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_SERVE["batch"], LM_SERVE["prompt_len"])
+        )).to(device)
+        T.prefill(params, toks, cfg, max_len=LM_SERVE["prompt_len"] + 1)
+    check(log.max_id < cfg.num_experts,
+          f"{cfg.name}: expert {log.max_id} routed to, but experts "
+          f"{cfg.num_experts}..{M._padded_experts(cfg) - 1} are dead")
+    lines.append({"lm": dict(
+        part="moe_serve", arch=cfg.name, dtype=cfg.param_dtype,
+        experts=cfg.num_experts, padded_experts=M._padded_experts(cfg),
+        top_k=cfg.moe_top_k, init_s=init_s, max_expert_id=log.max_id,
+        prefill_tokens=log.calls[0][0], capacity=log.calls[0][1],
+        prefill_dropped_by_layer=log.drops,
+        prefill_dropped=sum(log.drops),
+        prefill_assignments=len(log.drops) * log.calls[0][0] * cfg.moe_top_k,
+        **rec)})
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_ssm_serve(device, lines: list, rng) -> None:
+    """zamba2 at full width in bf16 served as gemma2-2b is, then over one
+    :data:`LM_LONG_PROMPT`-token prompt (32 SSD chunks of 256 a Mamba2
+    layer, the shared attention block in 512-query chunks); then the serve
+    driver's entry point, ``repro_torch.launch.serve.main`` with ``--arch
+    mamba2-130m --device cuda``, in process, at its defaults and full
+    width."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(LM_SSM_ARCH)
+    base = torch.cuda.memory_allocated(device)
+    peak = lambda: torch.cuda.max_memory_allocated(device) - base
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device).manual_seed(0),
+                           device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    rec = lm_serve_record(S, T, params, cfg, rng, peak)
+    torch.cuda.reset_peak_memory_stats(device)
+    long, _ = lm_long_record(T, params, cfg, rng)
+    long["peak_bytes"] = peak()
+    del params
+    torch.cuda.empty_cache()
+    argv = ["--arch", LM_SSM_DRIVER_ARCH, "--device", str(device)]
+    drv, drv_s = timed(lambda: S.main(argv))
+    torch.cuda.empty_cache()
+    check(drv["tokens"] == LM_SERVE["requests"] * LM_SERVE["gen"],
+          f"serve {' '.join(argv)}: {drv['tokens']} tokens")
+    lines.append({"lm": dict(
+        part="ssm_serve", arch=cfg.name, dtype=cfg.param_dtype,
+        ssm_chunk=cfg.ssm_chunk, init_s=init_s, **rec,
+        long_prompt=long, driver=dict(
+            arch=LM_SSM_DRIVER_ARCH, argv=f"{' '.join(argv)} (defaults)",
+            wall_s=drv_s, tokens=drv["tokens"],
+            tokens_per_s=drv["tokens_per_s"]))})
+
+
+def _train_start(argv, ckpt_dir) -> subprocess.Popen:
+    """The training driver with ``argv`` into ``ckpt_dir``, started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--ckpt-dir", ckpt_dir], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, REPRO_EMIT_LOSSES="1",
+                 PYTHONPATH=str(Path(__file__).resolve().parent / "src")))
+
+
+def _train_end(proc: subprocess.Popen, t0: float):
+    """Waits for a run from :func:`_train_start` (killed after 600 s):
+    (the completed process, its losses or None, each logged step's ms,
+    the seconds since ``t0``)."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    wall = time.perf_counter() - t0
+    r = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+    losses = [json.loads(ln[len("LOSSES "):]) for ln in out.splitlines()
+              if ln.startswith("LOSSES ")]
+    step_ms = [float(m.group(1)) for m in re.finditer(
+        r"^\[train\] step \d+ loss \S+ \((\d+) ms\)$", out, re.M)]
+    return r, (losses[0] if losses else None), step_ms, wall
+
+
+def lm_train(device, lines: list) -> None:
+    """mamba2-130m at full width (bf16, remat ``full``) through the
+    training driver, ``python -m repro_torch.launch.train --device cuda``:
+    :data:`LM_TRAIN`'s steps with a checkpoint every 5 steps, the loss
+    falling; beside it on the card a run crashed at step 12
+    (``--simulate-failure-at``), which must exit non-zero, then that
+    run's rerun, which must restore step 10
+    and replay the clean run's steps 10-19 within :data:`LM_RESTART_RTOL`.
+    Then, in process, the same state's step timed by CUDA events, its peak
+    memory, and one step profiled."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    tr = LM_TRAIN
+    argv = ["--arch", tr["arch"], "--device", str(device), "--steps",
+            str(tr["steps"]), "--batch", str(tr["batch"]), "--seq",
+            str(tr["seq"]), "--ckpt-every", str(tr["ckpt_every"]),
+            "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the clean run and the run to be crashed side by side on the card;
+        # the crashed run's restart starts when it has ended
+        t0 = time.perf_counter()
+        procs = [_train_start(argv, os.path.join(tmp, "a")),
+                 _train_start(argv + ["--simulate-failure-at",
+                                      str(tr["fail_at"])],
+                              os.path.join(tmp, "b"))]
+        try:
+            crash, _, _, crash_s = _train_end(procs[1], t0)
+            check(crash.returncode != 0
+                  and "simulated node failure" in crash.stderr,
+                  f"train: the crashed run exited {crash.returncode}")
+            t1 = time.perf_counter()
+            procs.append(_train_start(argv, os.path.join(tmp, "b")))
+            clean, losses, step_ms, clean_s = _train_end(procs[0], t0)
+            again, resumed, _, again_s = _train_end(procs[2], t1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(clean.returncode == 0 and losses is not None,
+              f"train: clean run failed: {clean.stderr[-2000:]}")
+        check(again.returncode == 0 and resumed is not None,
+              f"train: the restart failed: {again.stderr[-2000:]}")
+    restored = re.search(r"restored step (\d+)", again.stdout)
+    check(restored is not None and int(restored.group(1)) == 10,
+          f"train: the restart did not restore step 10: {again.stdout[:300]}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"train: the loss did not fall: {losses}")
+    clean_tail = np.array(losses[10:])
+    rel = np.abs(np.array(resumed) - clean_tail) / np.abs(clean_tail)
+    check(len(resumed) == len(clean_tail)
+          and float(rel.max()) <= LM_RESTART_RTOL,
+          f"train: steps 10-19 replayed off by {rel.max()} relative "
+          f"(> {LM_RESTART_RTOL}): {resumed} vs {clean_tail.tolist()}")
+
+    # in process: the step's time, peak memory and one profile
+    cfg = get_config(tr["arch"])
+    opt = OptConfig(lr=3e-4, warmup_steps=min(20, tr["steps"] // 5 + 1),
+                    total_steps=tr["steps"])
+    base = torch.cuda.memory_allocated(device)
+    state = init_train_state(cfg, opt, torch.Generator(device).manual_seed(0),
+                             device)
+    pipe = SyntheticPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=tr["seq"],
+        global_batch=tr["batch"], d_model=cfg.d_model))
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in pipe.batch_at(0).items()}
+    step = make_train_step(cfg, opt)
+    state, _ = step(state, batch)                       # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(LM_TRAIN_REPS):
+        (state, m), ms = event_call(lambda: step(state, batch))
+        times.append(ms)
+    peak_bytes = torch.cuda.max_memory_allocated(device) - base
+    prof = profile_call(lambda: step(state, batch))
+    step_med = statistics.median(times)
+    lines.append({"lm": dict(
+        part="train", **tr, dtype=cfg.param_dtype, remat=cfg.remat,
+        loss_chunk=cfg.loss_chunk,
+        params=sum(t.numel() for t in tree_leaves(state.params)),
+        driver_wall_s=clean_s, crash_wall_s=crash_s, restart_wall_s=again_s,
+        driver_beside="the crashed run, then its restart, on the same card",
+        losses=losses, resumed_losses=resumed,
+        restored_step=int(restored.group(1)),
+        replay_max_rel_err=float(rel.max()),
+        replay_bitwise=bool((np.array(resumed) == clean_tail).all()),
+        driver_step_ms_median=(statistics.median(step_ms[1:])
+                               if len(step_ms) > 1 else None),
+        step_ms=step_med, step_ms_all=times,
+        tokens_per_s=tr["batch"] * tr["seq"] / (step_med / 1e3),
+        peak_bytes=peak_bytes, step_profile=prof,
+        step_idle=idle_share(prof["busy_s"], prof["wall_s"]))})
+    del state
+    torch.cuda.empty_cache()
+
+
+def lm_phase(device, lines: list, cfg=None) -> None:
+    """The LMs on the card (no kernel of the port is on this path:
+    attention is JAX's einsum + softcap + mask + softmax, the MoE, SSD and
+    optimizer plain torch ops, none a Pallas kernel in JAX).
+
+    1. ``cfg`` (gemma2-2b at full width, bf16, random parameters drawn on
+       the card) served through ``repro_torch.launch.serve.serve`` at the
+       JAX driver's defaults, every logit finite and every token in range;
+       prefill and decode step timed by CUDA events after a warm-up (the
+       host's launch gaps included), and once each under the profiler
+       (device busy time, the top ops);
+    2. one prompt of ``LM_LONG_PROMPT`` tokens (past the sliding window:
+       512-query chunks), timed and profiled, then ``LM_LONG_GEN`` decode
+       steps, timed, its peak memory;
+    3. the same widths in f32 (f32 cache, no TF32): prefill + decode
+       against the forward pass, and 512-query chunks against none over
+       the last 16 positions of the long prompt, each within
+       ``LM_F32_TOL``;
+    4. the smoke configs of ``LM_CPU_ARCHS`` on CUDA against the CPU, f32:
+       forward, logits, prefill and decode within ``LM_CPU_TOL``, and one
+       ``train_loss`` gradient, each leaf's max error relative to its
+       largest entry;
+    5. qwen2-moe at full width (:func:`lm_moe_serve`);
+    6. zamba2 at full width, its 8192-token prompt, and the serve driver
+       on mamba2-130m (:func:`lm_ssm_serve`);
+    7. mamba2-130m trained at full width through the training driver,
+       crashed and restarted (:func:`lm_train`).
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import value_and_grad
+
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls would run in TF32")
+    cfg = cfg or get_config(LM_ARCH)
+    base = torch.cuda.memory_allocated(device)
+    peak = lambda: torch.cuda.max_memory_allocated(device) - base
+    rng = np.random.default_rng(0)
+
+    # 1. serve at full width, bf16
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device).manual_seed(0),
+                           device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    lines.append({"lm": dict(
+        part="serve", arch=cfg.name, dtype=cfg.param_dtype, init_s=init_s,
+        **lm_serve_record(S, T, params, cfg, rng, peak))})
+
+    # 2. a long prompt, past the window
+    torch.cuda.reset_peak_memory_stats(device)
+    long, long_toks = lm_long_record(T, params, cfg, rng)
     lines.append({"lm": dict(
         part="long_prompt", arch=cfg.name, dtype=cfg.param_dtype,
-        prompt=S_long, gen=LM_LONG_GEN, window=cfg.sliding_window,
-        q_chunk=T._auto_q_chunk(S_long), prefill_ms=prefill_ms,
-        prefill_profile=prefill_profile,
-        decode_ms_median=statistics.median(steps_ms),
-        decode_ms_first_last=[steps_ms[0], steps_ms[-1]],
-        peak_bytes=peak())})
-    del params, caches, logits
+        window=cfg.sliding_window, **long, peak_bytes=peak())})
+    del params
     torch.cuda.empty_cache()
 
     # 3. the same widths in f32
@@ -2088,7 +2412,7 @@ def lm_phase(device, lines: list, cfg=None) -> None:
         param_bytes=sum(t.numel() * t.element_size()
                         for t in tree_leaves(params)),
         decode_vs_forward_max_abs_err=dec_err,
-        q_chunk_512_vs_0_max_abs_err=chunk_err, prompt=S_long,
+        q_chunk_512_vs_0_max_abs_err=chunk_err, prompt=LM_LONG_PROMPT,
         tol=LM_F32_TOL, peak_bytes=peak())})
     del params, out
     torch.cuda.empty_cache()
@@ -2109,11 +2433,29 @@ def lm_phase(device, lines: list, cfg=None) -> None:
         errs[arch] = {name: float((a.cpu() - b).abs().max())
                       for name, a, b in zip(("decode", "logits", "hidden"),
                                             res[str(device)], res["cpu"])}
+        labels = torch.from_numpy(rng.integers(0, small.vocab_size, (2, 16)))
+        grads = [value_and_grad(p, dict(tokens=toks.to(dev),
+                                         labels=labels.to(dev),
+                                         **{k: v.to(dev) for k, v in
+                                            extras.items()}), small)[2]
+                 for dev, p in (("cpu", host), (device, card))]
+        errs[arch]["grad_rel"] = max(
+            float((a - b.cpu()).abs().max()) / (float(a.abs().max()) + 1e-7)
+            for a, b in zip(tree_leaves(grads[0]), tree_leaves(grads[1])))
         worst = max(errs[arch].values())
         check(worst <= LM_CPU_TOL,
               f"{arch} smoke, CUDA vs CPU: {errs[arch]} > {LM_CPU_TOL}")
     lines.append({"lm": dict(part="cuda_vs_cpu", archs=list(LM_CPU_ARCHS),
                              max_abs_err=errs, tol=LM_CPU_TOL)})
+
+    # 5.-7. the MoE and Mamba2 LMs at full width, then training
+    for part in (lm_moe_serve, lm_ssm_serve):
+        t0 = time.perf_counter()
+        part(device, lines, rng)
+        lines.append({f"{part.__name__}_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    lm_train(device, lines)
+    lines.append({"lm_train_s": time.perf_counter() - t0})
 
 
 def serial_check(device) -> dict:
@@ -2130,6 +2472,7 @@ def serial_check(device) -> dict:
 
 
 def main() -> int:
+    T0 = time.perf_counter()
     import numpy as np
     import torch
 
@@ -2155,10 +2498,10 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    common.build(KERNELS)
+    clocked("build", lambda: common.build(KERNELS))
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
           f"({', '.join(KERNELS)}, nvcc {' '.join(common.NVCC_FLAGS)})")
-    RATES.update(min_plus_rate.rates(device))
+    RATES.update(clocked("rates", lambda: min_plus_rate.rates(device)))
     print(json.dumps({"min_plus_rate": RATES}))
 
     t0 = time.perf_counter()
@@ -2175,11 +2518,13 @@ def main() -> int:
         print(f"graph {name}: n={g.n} nnz={g.to_csr().nnz} "
               f"adj={g.adj.nbytes} bytes")
     print(f"graph generation: {time.perf_counter() - t0:.1f} s")
+    CLOCK["graphs"] = time.perf_counter() - t0
 
     lines: list = []
     try:
         rng = np.random.default_rng(0)
-        kern, pull_lines = kernel_phase(graphs, device, rng)
+        kern, pull_lines = clocked("kernel", lambda: kernel_phase(
+            graphs, device, rng))
         big = f"paper-sparse-{DENSE_SPARSE_N}"
         t0 = time.perf_counter()
         kern.update(dense_kernel_phase(dense[big], device, rng))
@@ -2188,25 +2533,31 @@ def main() -> int:
         for fn in wrappers.values():
             fn.launches = 0
         walls, refs = {}, {}
-        lines += pull_lines + engine_phase(graphs, device, walls, wrappers,
-                                           refs)
+        lines += pull_lines + clocked("engine", lambda: engine_phase(
+            graphs, device, walls, wrappers, refs))
         t0 = time.perf_counter()
         lines += dynamic_phase("sparse-4M", graphs["sparse"], device,
                                wrappers)
         lines.append({"dynamic_phase_s": time.perf_counter() - t0})
+        CLOCK["dynamic"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         lines += dense_engine_phase(dense, device, walls, rng, wrappers,
                                     refs)
         dense_s["dense_engine_phase_s"] = time.perf_counter() - t0
+        CLOCK["dense"] = sum(dense_s.values())
         lines.append(dense_s)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in wrappers.items()}
         for k, cnt in launches.items():
             check(cnt > 0, f"kernel {k} was not launched on the main path")
-        lines.append(serial_check(device))
-        profiled = {name: (cg, tuple(TWINS)) for name, cg in graphs.items()}
+        lines.append(clocked("serial", lambda: serial_check(device)))
+        # road-4M's ≈ 4000-sweep solves leave traces whose processing took
+        # ≈ 1 min of the run: its idle shares stand in PERF.md §5
+        profiled = {name: (cg, tuple(TWINS)) for name, cg in graphs.items()
+                    if name != "road"}
         profiled[big] = (dense[big], ("bellman_kernel",))
-        lines += profile_phase(profiled, walls, device)
+        lines += clocked("profile", lambda: profile_phase(
+            profiled, walls, device))
         # the sharded engines on an NCCL group of one: their own window
         t0 = time.perf_counter()
         torch.cuda.synchronize()
@@ -2223,6 +2574,7 @@ def main() -> int:
                                               sharded)
         lines += mode_lines
         lines.append({"sharded_phase_s": time.perf_counter() - t0})
+        CLOCK["sharded"] = time.perf_counter() - t0
         del dense, refs
         # the serving path: its own launch window
         t0 = time.perf_counter()
@@ -2237,11 +2589,13 @@ def main() -> int:
         check(served["frontier_relax"] > 0,
               "frontier_relax was not launched on the serving path")
         lines.append({"serve_phase_s": time.perf_counter() - t0})
+        CLOCK["serve"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         obs_phase(graphs["sparse"], registry, zipf,
                   {e: walls["sparse", e] for e in SINGLE_ENGINES}, zipf_wall,
                   device, wrappers, lines)
         lines.append({"obs_phase_s": time.perf_counter() - t0})
+        CLOCK["obs"] = time.perf_counter() - t0
         # sharded serving on ranks sharing the card: its own window, the
         # followers' launches read through the group's STATS
         t0 = time.perf_counter()
@@ -2260,6 +2614,7 @@ def main() -> int:
               "ranks")
         lines.append({"sharded_serve_phase_s": time.perf_counter() - t0,
                       "followers_launches": followers})
+        CLOCK["sharded_serve"] = time.perf_counter() - t0
         # the serving drivers, then self-tuning: a launch window each
         windows = {}
         for path, run in (
@@ -2278,6 +2633,7 @@ def main() -> int:
             torch.cuda.synchronize()
             windows[path] = {k: fn.launches for k, fn in wrappers.items()}
             lines.append({f"{path}_phase_s": time.perf_counter() - t0})
+            CLOCK[path] = time.perf_counter() - t0
         check(windows["drivers"]["frontier_relax"] > 0,
               "frontier_relax was not launched by the serving drivers")
         for k in ("ell_relax", "frontier_relax", "bucket_relax"):
@@ -2286,11 +2642,14 @@ def main() -> int:
     except (CheckFailed, SystemExit) as e:
         for line in lines:              # what ran before the failure
             print(json.dumps(line))
+        print(json.dumps({"clock_s": CLOCK}))
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     for line in lines:
         print(json.dumps(line))
+    CLOCK["total"] = time.perf_counter() - T0
+    print(json.dumps({"clock_s": CLOCK}))
     print(json.dumps({"kernel_modes": modes}))
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNELS[k][0],

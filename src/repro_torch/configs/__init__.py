@@ -1,6 +1,5 @@
 """Architecture registry: ``get_config(arch_id)`` / ``make_smoke(cfg)`` (a
-copy of ``repro/configs/__init__.py``; the port builds six of the ten
-archs, the attention-only ones, and refuses the MoE and SSM four).
+copy of ``repro/configs/__init__.py``; the port builds all ten archs).
 
 Every assigned architecture is selectable by id (``--arch <id>``); smoke
 variants keep the family structure (segment patterns, GQA ratios, MoE

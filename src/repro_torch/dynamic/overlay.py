@@ -40,6 +40,23 @@ from repro_torch.core.csr import CsrGraph
 from repro_torch.core.graph import INF
 
 
+def _by_dst_then_src(src, dst, ov_src, ov_dst, n: int) -> np.ndarray:
+    """``np.lexsort((src', dst'))`` of the live base arcs followed by the
+    live overlay arcs (``src' = concat(src, ov_src)``, ``dst'`` likewise):
+    the order that sorts them by dst, then src, ties in input order.  The
+    base arcs of a CsrGraph already come in that order, so only the few
+    overlay arcs are sorted and merged in after their equal keys; a base
+    out of that order falls back to the full lexsort."""
+    key = dst.astype(np.int64) * n + src
+    if key.size and not bool((key[1:] >= key[:-1]).all()):
+        return np.lexsort((np.concatenate([src, ov_src]),
+                           np.concatenate([dst, ov_dst])))
+    ov_key = ov_dst.astype(np.int64) * n + ov_src
+    ov_order = np.argsort(ov_key, kind="stable")
+    at = np.searchsorted(key, ov_key[ov_order], side="right")
+    return np.insert(np.arange(key.size), at, key.size + ov_order)
+
+
 @dataclasses.dataclass(frozen=True)
 class EdgeDelta:
     """Net effect of one batch on one edge: ``w_old -> w_new``, INF meaning
@@ -364,11 +381,12 @@ class DynamicGraph:
         dst = self.base.dst_ids()[live]
         w = self._in_w[live]
         ov_live = self._ov_dst < self.n
+        order = _by_dst_then_src(src, dst, self._ov_src[ov_live],
+                                 self._ov_dst[ov_live], self.n)
         if ov_live.any():
             src = np.concatenate([src, self._ov_src[ov_live]])
             dst = np.concatenate([dst, self._ov_dst[ov_live]])
             w = np.concatenate([w, self._ov_w[ov_live]])
-        order = np.lexsort((src, dst))                 # by dst, then src
         dst = dst.astype(np.int64)[order]
         counts = np.bincount(dst, minlength=self.n)
         indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)

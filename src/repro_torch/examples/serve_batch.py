@@ -1,10 +1,10 @@
 """Batched serving example: the LM serving loop over a queue of requests
-for an attention-only architecture (smoke scale by default), reporting
-latency and throughput (port of ``examples/serve_batch.py``).
+for any assigned architecture (smoke scale by default), reporting latency
+and throughput (port of ``examples/serve_batch.py``).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_batch   # gemma2-2b
     PYTHONPATH=src python -m repro_torch.examples.serve_batch \
-        --arch seamless-m4t-medium --device cpu
+        --arch zamba2-2.7b --device cpu
 """
 from __future__ import annotations
 

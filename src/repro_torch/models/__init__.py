@@ -1,2 +1,3 @@
-"""The attention-only language models: common, mlp, attention, blocks,
-transformer, and convert (parameters carried over from the JAX package)."""
+"""The language models: common, mlp, attention, moe, ssm, blocks,
+transformer, tree (parameter-tree helpers), and convert (parameters
+carried between the JAX package's layout and the port's)."""

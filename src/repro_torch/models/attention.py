@@ -138,10 +138,11 @@ def _project_kv(p, x, cfg, positions, theta, *, rope=True):
 
 def _out_proj(p, ctx, cfg=None):
     """einsum("bshk,hkd->bsd") in the dtype of ``ctx`` (bf16 when decode
-    attended over a bf16 cache, even with f32 parameters, as JAX's)."""
+    attended over a bf16 cache, even with f32 parameters, as JAX's), under
+    JAX's ``bf16_partial_reduce`` switch."""
     h, k, d = p["wo"].shape
-    out = cm.dot_f32(ctx.flatten(-2), p["wo"].reshape(h * k, d))
-    return constrain(out.to(ctx.dtype), "hidden")
+    out = cm.matmul_reduce(ctx.flatten(-2), p["wo"].reshape(h * k, d), cfg)
+    return constrain(out, "hidden")
 
 
 def self_attention(p, x, positions, cfg, *, causal, window, theta,

@@ -42,16 +42,51 @@ def dot_f32(a, b):
     """
     if a.dtype == b.dtype == torch.bfloat16 and a.is_cuda:
         if b.dim() == 2:
-            out = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                           out_dtype=torch.float32)
+            out = _Bf16DotF32.apply(a.reshape(-1, a.shape[-1]), b)
             return out.reshape(*a.shape[:-1], b.shape[-1])
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _Bf16DotF32.apply(a, b)
     return torch.matmul(a.float(), b.float())
+
+
+class _Bf16DotF32(torch.autograd.Function):
+    """``torch.mm/bmm(a, b, out_dtype=float32)`` of two bf16 CUDA tensors,
+    which has no derivative of its own in torch.  Its backward is the one
+    the upcast product has on the CPU (and JAX's): the f32 cotangent
+    times the other operand in f32, each gradient rounded once to its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.mm if b.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
 
 
 def matmul(x, w):
     """x @ w with f32 accumulation regardless of storage dtype."""
     return dot_f32(x, w).to(x.dtype)
+
+
+def matmul_reduce(x, w, cfg):
+    """JAX's ``einsum(x, w, preferred_element_type=pet).astype(x.dtype)``
+    with ``pet`` x's dtype under ``cfg.bf16_partial_reduce``, else f32.
+    XLA computes a product whose preferred type is narrower than an
+    operand with that operand cast to it, so with the switch on, bf16
+    activations meet an f32 weight rounded to bf16; products accumulate
+    in f32 either way."""
+    if cfg is not None and cfg.bf16_partial_reduce:
+        w = w.to(x.dtype)
+    return matmul(x, w)
 
 
 # ---------------------------------------------------------------------------

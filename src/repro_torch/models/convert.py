@@ -1,13 +1,20 @@
-"""Parameters carried over from the JAX package.
+"""Parameters carried between the JAX package's layout and the port's.
 
-``from_jax_params(tree, cfg, device)`` takes the JAX package's parameter
-pytree as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
-the port's parameters: each segment's stacked reps unstacked into the
-port's flat layer order (:func:`repro_torch.models.transformer.layer_kinds`),
-for ``segments`` and ``enc_segments`` alike.  A tree whose leaves or
-shapes differ from what ``cfg`` gives is refused, leaf by leaf.  Dtypes
-are kept unless ``dtype`` is given.  This is the only path from JAX's
-parameters into the port's models (torch cannot replay JAX's PRNG).
+``from_jax_params(tree, cfg, device)`` takes a parameter tree in JAX's
+layout (``jax.tree.map(np.asarray, params)``, or tensors, as a
+checkpoint restores them) and returns the port's parameters: each
+segment's stacked reps unstacked into the port's flat layer order
+(:func:`repro_torch.models.transformer.layer_kinds`), for ``segments``
+and ``enc_segments`` alike; the top-level leaves (``embed``, the final
+norms, ``lm_head``, Zamba2's ``shared`` block) as they are.  A tree whose
+leaves or shapes differ from what ``cfg`` gives is refused, leaf by leaf.
+Dtypes are kept unless ``dtype`` is given.  This is the only path from
+JAX's parameters into the port's models (torch cannot replay JAX's PRNG).
+
+``to_jax_layout(params, cfg)`` is its inverse: the flat layers restacked
+into ``segments[si][i]`` trees with a leading ``(n_rep, ...)`` axis.  It
+serves any tree of the parameters' structure (the optimizer's moments
+too), which is what a checkpoint stores.
 """
 from __future__ import annotations
 
@@ -16,6 +23,13 @@ import torch
 
 from repro_torch.core.api import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.tree import tree_map
+
+#: top-level entries that are the same in both layouts
+_TOP = ("embed", "final_ln", "lm_head", "enc_final_ln", "shared")
+#: stacked JAX entry -> the port's flat one
+_STACKS = (("segments", "layers", "segments"),
+           ("enc_segments", "enc_layers", "encoder_segments"))
 
 
 def _flatten(tree, prefix=""):
@@ -27,14 +41,6 @@ def _flatten(tree, prefix=""):
             yield from _flatten(sub, f"{prefix}/{i}")
     else:
         yield prefix, tree
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def _unstack(seg_trees, segments, name):
@@ -53,32 +59,33 @@ def _unstack(seg_trees, segments, name):
                     raise ValueError(f"{path}: shape {np.shape(a)} is not "
                                      f"stacked over the segment's {rep} reps")
         for r in range(rep):
-            layers += [_map(lambda a: np.asarray(a[r]), seg[i])
+            layers += [tree_map(lambda a: a[r], seg[i])
                        for i in range(len(pat))]
     return layers
 
 
 def _tensor(a, device, dtype):
-    a = np.array(a)                                   # a writable copy
-    if a.dtype.name == "bfloat16":                    # ml_dtypes' bfloat16
-        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if isinstance(a, torch.Tensor):
+        t = a
     else:
-        t = torch.from_numpy(a)
+        a = np.array(a)                               # a writable copy
+        if a.dtype.name == "bfloat16":                # ml_dtypes' bfloat16
+            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def from_jax_params(tree, cfg, device="cuda", dtype=None) -> dict:
-    """The port's parameters from JAX's numpy pytree (see the module)."""
+    """The port's parameters from a tree in JAX's layout (see the module)."""
     dev = resolve_device(device)
     want = dict(_flatten(T.init_params(cfg, device="meta")))
-    port = {k: tree[k] for k in ("embed", "final_ln", "lm_head",
-                                  "enc_final_ln") if k in tree}
-    port["layers"] = _unstack(tree.get("segments", ()), cfg.segments,
-                              "segments")
-    if cfg.encoder_segments or "enc_segments" in tree:
-        port["enc_layers"] = _unstack(tree.get("enc_segments", ()),
-                                      cfg.encoder_segments, "enc_segments")
-    extra = sorted(set(tree) - set(port) - {"segments", "enc_segments"})
+    port = {k: tree[k] for k in _TOP if k in tree}
+    for jax_name, name, attr in _STACKS:
+        if getattr(cfg, attr) or jax_name in tree:
+            port[name] = _unstack(tree.get(jax_name, ()), getattr(cfg, attr),
+                                  jax_name)
+    extra = sorted(set(tree) - set(port) - {j for j, _, _ in _STACKS})
     got = dict(_flatten(port))
     missing = sorted(set(want) - set(got))
     extra += sorted(set(got) - set(want))
@@ -91,4 +98,28 @@ def from_jax_params(tree, cfg, device="cuda", dtype=None) -> dict:
             raise ValueError(f"{cfg.name}: {path} has shape "
                              f"{tuple(np.shape(got[path]))}, the config "
                              f"gives {tuple(t.shape)}")
-    return _map(lambda a: _tensor(a, dev, dtype), port)
+    return tree_map(lambda a: _tensor(a, dev, dtype), port)
+
+
+def _restack(layers, segments) -> tuple:
+    out, base = [], 0
+    for pat, rep in segments:
+        seg = []
+        for i in range(len(pat)):
+            reps = [layers[base + r * len(pat) + i] for r in range(rep)]
+            seg.append(tree_map(lambda *ts: torch.stack(ts), *reps))
+        out.append(tuple(seg))
+        base += rep * len(pat)
+    if base != len(layers):
+        raise ValueError(f"{len(layers)} layers, the segments hold {base}")
+    return tuple(out)
+
+
+def to_jax_layout(params, cfg) -> dict:
+    """``params`` (or any tree of their structure) in JAX's stacked
+    layout: ``segments[si][i]`` with leading ``(n_rep, ...)``."""
+    tree = {k: params[k] for k in _TOP if k in params}
+    for jax_name, name, attr in _STACKS:
+        if name in params:
+            tree[jax_name] = _restack(params[name], getattr(cfg, attr))
+    return tree

@@ -20,11 +20,10 @@ def init_mlp(cfg, generator, device, d_ff=None):
 
 
 def mlp(p, x, cfg=None):
-    """The gate and up products stay f32 through ``silu``, as JAX's.  JAX's
-    ``bf16_partial_reduce`` changes only how tensor-parallel partial sums
-    are reduced; on one device the down projection is one f32-accumulated
-    product either way."""
+    """The gate and up products stay f32 through ``silu``, as JAX's; the
+    down projection follows JAX's ``bf16_partial_reduce`` switch
+    (:func:`repro_torch.models.common.matmul_reduce`)."""
     g = cm.dot_f32(x, p["wi_gate"])
     u = cm.dot_f32(x, p["wi_up"])
     h = constrain((F.silu(g) * u).to(x.dtype), "ffh")
-    return cm.matmul(h, p["wo"])
+    return cm.matmul_reduce(h, p["wo"], cfg)

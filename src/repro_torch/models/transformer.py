@@ -1,5 +1,5 @@
 """LM driver: init / forward / loss / prefill / decode (port of
-``repro/models/transformer.py`` for the attention-only archs).
+``repro/models/transformer.py``).
 
 The stack is a list of segments (pattern, n_rep).  JAX stacks a segment's
 parameters over reps and scans them; eager torch has no program size to
@@ -10,24 +10,64 @@ the encoder's in ``params["enc_layers"]`` likewise.  Caches are one entry
 a decoder layer in the same order; prefill fills them and decode writes
 them in place.
 
-One driver covers four of the six assigned families:
-  dense              decoder-only segments (G/L/D kinds)
+One driver covers all six assigned families:
+  dense / moe        decoder-only segments (G/L/D kinds)
+  ssm / hybrid       M/S kinds (+ Zamba2's weight-shared attention block,
+                     ``params["shared"]``, passed to every S layer)
   vlm                C kinds cross-attending to stub image embeddings
   audio (enc-dec)    encoder_segments (E) + decoder segments (X)
-The MoE, SSM and hybrid archs raise ``NotImplementedError`` (ROADMAP
-A.13b), before any parameter is allocated.  ``train_loss`` is forward
-only here; gradients and remat come with training (A.13b).
+
+``train_loss`` is differentiable (``torch.autograd``).  With gradients on,
+``cfg.remat`` checkpoints one rep of a segment's pattern at a time, JAX's
+unit: ``"full"`` saves nothing inside it, ``"dots"`` saves the products'
+outputs (JAX's ``checkpoint_dots``), ``"none"`` saves everything; the
+forward value is the same under all three.  ``lm_loss`` recomputes each
+loss chunk's logits in the backward pass, as JAX's does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.api import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import common as cm
 from repro_torch.sharding.rules import constrain
+
+
+#: the aten products whose outputs ``remat="dots"`` keeps
+_DOT_OPS = tuple(
+    op for name, overload in (("mm", "default"), ("mm", "dtype"),
+                              ("bmm", "default"), ("bmm", "dtype"),
+                              ("addmm", "default"), ("baddbmm", "default"))
+    if (op := getattr(getattr(torch.ops.aten, name), overload, None))
+    is not None)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` checkpointed by the ``remat`` policy (when gradients are on)."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def layer_kinds(segments) -> list[str]:
@@ -46,8 +86,6 @@ def init_params(cfg, generator=None, device="cuda") -> dict:
     torch's default).  ``device="meta"`` gives the shapes alone."""
     dev = resolve_device(device)
     dec, enc = layer_kinds(cfg.segments), layer_kinds(cfg.encoder_segments)
-    for kind in dec + enc:
-        B._refuse(kind, cfg)
     dt = cm.dtype_of(cfg)
     params: dict[str, Any] = {
         "embed": cm.init_embed(cfg, generator, dev),
@@ -58,6 +96,8 @@ def init_params(cfg, generator=None, device="cuda") -> dict:
                                           generator, dev)
     params["layers"] = [B.init_layer(kind, cfg, generator, dev)
                         for kind in dec]
+    if "S" in dec:
+        params["shared"] = B.init_shared_block(cfg, generator, dev)
     if enc:
         params["enc_layers"] = [B.init_layer(kind, cfg, generator, dev)
                                 for kind in enc]
@@ -86,16 +126,32 @@ def _positions(Bsz: int, S: int, device):
     return torch.arange(S, device=device).expand(Bsz, S)
 
 
-def _run_stack_full(kinds, layers, x, positions, cfg, *, ctx, caches,
-                    q_chunk):
-    """Train (caches=None) or prefill (caches given) pass over the stack."""
+def _run_stack_full(segments, layers, x, positions, cfg, *, ctx, shared,
+                    caches, q_chunk, remat):
+    """Train (caches=None) or prefill (caches given) pass over the stack,
+    a rep of a segment's pattern at a time (the remat unit)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, kind in enumerate(kinds):
-        x, entry, aux = B.apply_layer_full(
-            layers[i], kind, x, positions, cfg, ctx=ctx,
-            entry=None if caches is None else caches[i], q_chunk=q_chunk)
-        x = constrain(x, "hidden")
-        aux_total = aux_total + aux
+    base = 0
+    for pat, n_rep in segments:
+        for _ in range(n_rep):
+            idx = range(base, base + len(pat))
+
+            def rep(x, idx=idx, pat=pat):
+                aux_acc = torch.zeros((), dtype=torch.float32,
+                                      device=x.device)
+                for i, kind in zip(idx, pat):
+                    x, _, aux = B.apply_layer_full(
+                        layers[i], kind, x, positions, cfg, ctx=ctx,
+                        shared=shared,
+                        entry=None if caches is None else caches[i],
+                        q_chunk=q_chunk)
+                    aux_acc = aux_acc + aux
+                return constrain(x, "hidden"), aux_acc
+
+            x, aux = (rep(x) if caches is not None
+                      else _remat(rep, remat)(x))
+            aux_total = aux_total + aux
+            base += len(pat)
     return x, caches, aux_total
 
 
@@ -103,9 +159,9 @@ def _encode(params, frames, cfg):
     """Run the encoder stack on stub frame embeddings (B, T, d)."""
     Bsz, T, _ = frames.shape
     x, _, _ = _run_stack_full(
-        layer_kinds(cfg.encoder_segments), params["enc_layers"], frames,
-        _positions(Bsz, T, frames.device), cfg, ctx=None, caches=None,
-        q_chunk=_auto_q_chunk(T))
+        cfg.encoder_segments, params["enc_layers"], frames,
+        _positions(Bsz, T, frames.device), cfg, ctx=None, shared=None,
+        caches=None, q_chunk=_auto_q_chunk(T), remat=cfg.remat)
     return cm.rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -132,8 +188,9 @@ def forward(params, tokens, cfg, *, image_embeds=None, encoder_frames=None,
     ctx = _build_ctx(params, cfg, image_embeds, encoder_frames)
     qc = _auto_q_chunk(S) if q_chunk is None else q_chunk
     x, caches, aux = _run_stack_full(
-        layer_kinds(cfg.segments), params["layers"], x, positions, cfg,
-        ctx=ctx, caches=caches, q_chunk=qc)
+        cfg.segments, params["layers"], x, positions, cfg, ctx=ctx,
+        shared=params.get("shared"), caches=caches, q_chunk=qc,
+        remat=cfg.remat)
     x = cm.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return x, caches, aux
 
@@ -144,11 +201,12 @@ def logits_from_hidden(params, x, cfg):
 
 def lm_loss(params, x, labels, cfg):
     """Chunked cross-entropy: logits are materialized ``loss_chunk``
-    tokens at a time, summed chunk by chunk in JAX's order."""
+    tokens at a time, summed chunk by chunk in JAX's order; with gradients
+    on, each chunk's logits are recomputed in the backward pass."""
     Bsz, S, d = x.shape
     chunk = cfg.loss_chunk
     valid = labels >= 0
-    safe_labels = labels.clamp(min=0)
+    safe_labels = labels.clamp(min=0).long()
 
     def ce(xc, lc, vc):
         logits = logits_from_hidden(params, xc, cfg)          # (B, c, V) f32
@@ -161,7 +219,8 @@ def lm_loss(params, x, labels, cfg):
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for c in range(0, S, chunk):
             sl = slice(c, c + chunk)
-            total = total + ce(x[:, sl], safe_labels[:, sl], valid[:, sl])
+            total = total + _remat(ce, "full")(
+                x[:, sl], safe_labels[:, sl], valid[:, sl])
     else:
         total = ce(x, safe_labels, valid)
     denom = valid.sum().clamp(min=1)
@@ -170,7 +229,8 @@ def lm_loss(params, x, labels, cfg):
 
 def train_loss(params, batch, cfg):
     """batch: dict(tokens, labels[, image_embeds, encoder_frames]).
-    Returns (loss, metrics).  Forward only: no gradient is taken."""
+    Returns (loss, metrics): the CE plus the MoE aux loss, differentiable
+    in the parameters."""
     x, _, aux = forward(
         params, batch["tokens"], cfg,
         image_embeds=batch.get("image_embeds"),
@@ -181,7 +241,8 @@ def train_loss(params, batch, cfg):
 
 def prefill(params, tokens, cfg, *, max_len: int, image_embeds=None,
             encoder_frames=None, cache_dtype=torch.bfloat16):
-    """Fill the KV caches for ``tokens`` and return last-token logits.
+    """Fill the KV / state caches for ``tokens`` and return last-token
+    logits.
 
     Returns (logits (B, vocab), caches, pos (B,))."""
     Bsz, S = tokens.shape
@@ -202,9 +263,11 @@ def decode_step(params, token, pos, caches, cfg, *, image_embeds=None):
     their context K/V from the cache prefill filled.
     """
     x = cm.embed(token, params["embed"], cfg)
+    shared = params.get("shared")
     for p, kind, entry in zip(params["layers"], layer_kinds(cfg.segments),
                               caches):
-        x, _ = B.apply_layer_decode(p, kind, x, pos, entry, cfg)
+        x, _ = B.apply_layer_decode(p, kind, x, pos, entry, cfg,
+                                    shared=shared)
         x = constrain(x, "hidden")
     x = cm.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     logits = logits_from_hidden(params, x, cfg)[:, 0]

@@ -5,12 +5,17 @@ relax_matmul also at n = 1025 to 1028 (every residue mod 4) and S in
 {1, 7, 8, 9, 17} with all-INF rows and tiles, so ragged tails, u-split
 boundaries and ragged source tiles are covered; the CSR pull kernels and
 the frontier push at every lane-group width, on graphs with rows that
-their whole-warp path takes.  The attention-only LMs' smoke configs on the
-card against the CPU, f32 without TF32, within 1e-4.
+their whole-warp path takes.  The LMs' smoke configs on the card against
+the CPU, f32 without TF32, within 1e-4: forward, logits, prefill + decode
+and (MoE and Mamba2 archs) one ``train_loss`` gradient, each leaf's max
+error relative to its largest entry; and training steps on the card
+repeat bitwise (the restart replay's premise).
 
 Marked ``cuda``; every test skips without a CUDA GPU.  On a machine with
 one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -377,7 +382,9 @@ def test_tuned_query_on_the_card_launches_its_kernel_twin(cuda, engine,
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "llama-3.2-vision-11b",
-                                  "seamless-m4t-medium"])
+                                  "seamless-m4t-medium", "qwen2-moe-a2.7b",
+                                  "kimi-k2-1t-a32b", "mamba2-130m",
+                                  "zamba2-2.7b"])
 def test_lm_smoke_on_the_card_matches_the_cpu(cuda, arch):
     """One parameter draw on the CPU, copied to the card; the forward
     pass, its logits and a teacher-forced prefill + decode (f32 cache) on
@@ -387,7 +394,9 @@ def test_lm_smoke_on_the_card_matches_the_cpu(cuda, arch):
     from repro_torch.models import transformer as T
 
     assert torch.get_float32_matmul_precision() == "highest"
-    cfg = make_smoke(get_config(arch))
+    # no MoE assignment drops, so decode can match the forward pass
+    cfg = dataclasses.replace(make_smoke(get_config(arch)),
+                              capacity_factor=64.0)
     host = T.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     rng = np.random.default_rng(3)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
@@ -412,6 +421,58 @@ def test_lm_smoke_on_the_card_matches_the_cpu(cuda, arch):
     for a, b in zip(out["cpu"], out[str(cuda)]):
         assert float((a - b.cpu()).abs().max()) <= 1e-4
     assert float((out["cpu"][2] - out["cpu"][1][:, 7:]).abs().max()) < 2e-3
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                                  "mamba2-130m", "zamba2-2.7b"])
+def test_lm_gradients_on_the_card_match_the_cpu(cuda, arch):
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models import transformer as T
+    from repro_torch.models.tree import leaves
+    from repro_torch.train.step import value_and_grad
+
+    cfg = make_smoke(get_config(arch))
+    host = T.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+             for k in ("tokens", "labels")}
+    out = {}
+    for dev in ("cpu", cuda):
+        params = host if dev == "cpu" else _tree_to(host, dev)
+        out[str(dev)] = value_and_grad(
+            params, {k: v.to(dev) for k, v in batch.items()}, cfg)
+    a, b = out["cpu"], out[str(cuda)]
+    assert abs(float(a[0]) - float(b[0])) <= 1e-4 * abs(float(a[0]))
+    for ga, gb in zip(leaves(a[2]), leaves(b[2])):
+        scale = float(ga.abs().max()) + 1e-7
+        assert float((ga - gb.cpu()).abs().max()) <= 1e-4 * scale
+
+
+def test_train_steps_on_the_card_repeat_bitwise(cuda):
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.models.tree import leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+
+    cfg = make_smoke(get_config("mamba2-130m"))
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32))
+                                 ).to(cuda) for k in ("tokens", "labels")}
+    runs = []
+    for _ in range(2):
+        state = init_train_state(cfg, opt,
+                                 torch.Generator(cuda).manual_seed(0), cuda)
+        step = make_train_step(cfg, opt)
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        runs.append((losses, [t.cpu() for t in leaves(state.params)]))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
 
 
 def _tree_to(tree, device):

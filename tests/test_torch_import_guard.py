@@ -1,7 +1,7 @@
 """The port stands alone: repro_torch and chip_smoke.py import neither jax
-nor anything of the JAX package, nor the root ``benchmarks`` package (the
-port keeps its own bench helpers), and chip_smoke.py refuses to report a
-result without a GPU."""
+nor anything of the JAX package (nor ``ml_dtypes``, which only JAX
+brings), nor the root ``benchmarks`` package (the port keeps its own bench
+helpers), and chip_smoke.py refuses to report a result without a GPU."""
 import ast
 import os
 import shutil
@@ -19,13 +19,17 @@ PAPER_MODULES = tuple(
                                  "make_experiments_md")]
     + [f"examples.{m}" for m in ("quickstart", "sssp_pipeline",
                                  "sssp_dynamic_demo", "sssp_serve_demo")])
-#: the LM configs, the single-device sharding hooks, the attention-only
-#: models and LM serving
+#: the LM configs, the single-device sharding hooks, the models (MoE and
+#: Mamba2 included), LM serving and the training substrate
 LM_MODULES = (
     ("configs", "configs.base", "configs.gemma2_2b", "sharding.rules")
     + tuple(f"models.{m}" for m in ("common", "mlp", "attention", "blocks",
-                                    "transformer", "convert"))
-    + ("launch.serve", "examples.serve_batch"))
+                                    "transformer", "convert", "moe", "ssm",
+                                    "tree"))
+    + ("launch.serve", "examples.serve_batch", "data", "data.pipeline",
+       "train", "train.optimizer", "train.state", "train.step",
+       "train.compression", "checkpoint", "checkpoint.manager",
+       "launch.train", "examples.train_lm"))
 
 
 def _env():
@@ -41,7 +45,7 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+        "('jax', 'jaxlib', 'repro', 'benchmarks', 'ml_dtypes'))\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
         "print(bad)\n"
         "print(sorted(k for k in sys.modules if k.startswith("
@@ -51,7 +55,7 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")
-    assert int(out[0]) >= 102                  # every module was imported
+    assert int(out[0]) >= 116                  # every module was imported
     assert out[1] == "[]"
     for name in PAPER_MODULES:
         assert f"'repro_torch.{name}'" in out[2], name
@@ -78,7 +82,8 @@ def test_no_source_file_imports_jax_or_repro():
             or path / "__init__.py" in files, name
     for f in files:
         roots = set(_imported_roots(f))
-        assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, f
+        assert not roots & {"jax", "jaxlib", "repro", "benchmarks",
+                            "ml_dtypes"}, f
 
 
 def _run_smoke(cwd: Path):

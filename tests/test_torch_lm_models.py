@@ -1,14 +1,17 @@
-"""The port's attention-only LMs (repro_torch.models) against the JAX
-package's, on the CPU, for the six archs whose layers are all attention
-(gemma3-1b, gemma2-2b, qwen1.5-0.5b, phi4-mini, llama-3.2-vision with C
-layers over stub image embeds, seamless-m4t with an E encoder and X
-decoder layers).
+"""The port's LMs (repro_torch.models) against the JAX package's, on the
+CPU, for all ten archs: the six whose layers are all attention (gemma3-1b,
+gemma2-2b, qwen1.5-0.5b, phi4-mini, llama-3.2-vision with C layers over
+stub image embeds, seamless-m4t with an E encoder and X decoder layers),
+the MoE two (qwen2-moe with 4 dead padded experts in its smoke config's
+64, kimi-k2 with its dense first layer) and the Mamba2 two (mamba2-130m,
+zamba2 with its shared attention block).
 
 Each arch's smoke config (f32) gets JAX's parameters, ``T.init_params(
 PRNGKey(0), cfg)`` as ``tests/test_models.py`` draws them, with the leaves
-JAX initialises to zero (norm scales, QKV biases, the tanh gates) set to
-small numpy-drawn values so that every one of them acts; the same numpy
-tree goes into JAX and, through ``from_jax_params``, into the port.
+JAX initialises to zero or one (norm scales, QKV biases, the tanh gates,
+the SSM's conv bias, norm, ``A_log`` and ``dt_bias``) set to small
+numpy-drawn values so that every one of them acts; the same numpy tree
+goes into JAX and, through ``from_jax_params``, into the port.
 Tokens and stub embeddings are numpy-made.  JAX's side runs jitted, once
 an arch, in a module-scoped fixture.  Bounds, fixed before measuring:
 
@@ -19,8 +22,8 @@ an arch, in a module-scoped fixture.  Bounds, fixed before measuring:
 
 JAX's own model tests follow on the port: smoke shapes, the sliding
 window, q-chunk exactness (1e-5), chunked CE == unchunked, label masking,
-the parameter count (2%); and the four MoE / SSM archs are refused
-(``NotImplementedError`` naming A.13b).
+the parameter count (2%).  The MoE and SSM modules, gradients and remat
+are held in ``test_torch_lm_moe_ssm.py``.
 """
 import dataclasses
 import functools
@@ -32,22 +35,23 @@ import pytest
 import torch
 
 import repro.models.attention as jattn
-from repro.configs import get_config, make_smoke
+from repro.configs import ARCHS, get_config, make_smoke
 from repro.models import transformer as JT
 from repro_torch.models import attention as pattn
 from repro_torch.models import transformer as PT
 from repro_torch.models.convert import from_jax_params
+from repro_torch.models.moe import _padded_experts
 
 KEY = jax.random.PRNGKey(0)
 ATTN_ARCHS = ("gemma3-1b", "gemma2-2b", "qwen1.5-0.5b", "phi4-mini-3.8b",
               "llama-3.2-vision-11b", "seamless-m4t-medium")
-REFUSED_ARCHS = ("kimi-k2-1t-a32b", "qwen2-moe-a2.7b", "mamba2-130m",
+MOE_SSM_ARCHS = ("kimi-k2-1t-a32b", "qwen2-moe-a2.7b", "mamba2-130m",
                  "zamba2-2.7b")
 TOL = 1e-4
 LOSS_RTOL = 1e-5
 B, S, LOSS_CHUNK = 2, 16, 8
 ZERO_INIT = ("scale", "bq", "bk", "bv", "q_norm", "k_norm", "gate",
-             "gate_ffn")
+             "gate_ffn", "conv_b", "norm", "A_log", "dt_bias")
 
 
 def _err(a, b):
@@ -142,7 +146,7 @@ def reference(arch):
     return cfg, tree, batch, jax_reference(cfg, tree, batch)
 
 
-@pytest.fixture(scope="module", params=ATTN_ARCHS)
+@pytest.fixture(scope="module", params=ARCHS)
 def case(request):
     return reference(request.param)
 
@@ -156,7 +160,7 @@ def _one_torch_thread():
 
 
 # ---------------------------------------------------------------------------
-# the six archs against JAX
+# the ten archs against JAX
 # ---------------------------------------------------------------------------
 
 def test_forward_hidden_and_logits_match_jax(case):
@@ -164,7 +168,8 @@ def test_forward_hidden_and_logits_match_jax(case):
     params = from_jax_params(tree, cfg, "cpu")
     tb = to_torch(batch)
     x, caches, aux = PT.forward(params, tb["tokens"], cfg, **extras(tb))
-    assert caches is None and float(aux) == 0.0
+    assert caches is None
+    assert (float(aux) > 0.0) == (cfg.num_experts > 0)
     assert x.shape == (B, S, cfg.d_model)
     assert _err(ref["hidden"], x) <= TOL
     logits = PT.logits_from_hidden(params, x, cfg)
@@ -246,12 +251,14 @@ def test_init_params_matches_param_count_and_layout(case):
     init, whose leaves have the carried tree's paths and shapes and JAX's
     instantiated count.  ``param_count`` counts no X layer
     (``configs/base.py``: kinds GLDE, C, M, S), so for seamless-m4t the
-    instantiated count alone is held."""
+    instantiated count alone is held, and so it is for qwen2-moe, whose
+    count leaves out its padded (dead) experts."""
     cfg, tree, _, _ = case
     own = PT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     actual = sum(t.numel() for t in jax.tree.leaves(own))
     assert actual == sum(np.size(a) for a in jax.tree.leaves(tree))
-    if "X" not in cfg.layer_kinds():
+    if ("X" not in cfg.layer_kinds()
+            and _padded_experts(cfg) == cfg.num_experts):
         assert abs(actual - cfg.param_count()) / actual < 0.02
     carried = from_jax_params(tree, cfg, "cpu")
     assert jax.tree.structure(own) == jax.tree.structure(carried)
@@ -269,7 +276,8 @@ def test_smoke_forward_and_train_step(case):
     assert x.shape == (B, S, cfg.d_model) and torch.isfinite(x).all()
     loss, metrics = PT.train_loss(params, tb, cfg)
     assert np.isfinite(float(loss)) and float(loss) > 0
-    assert float(metrics["ce"]) == float(loss)
+    assert float(metrics["ce"] + metrics["aux"]) == float(loss)
+    assert (float(metrics["aux"]) > 0) == (cfg.num_experts > 0)
 
 
 # ---------------------------------------------------------------------------
@@ -296,17 +304,6 @@ def test_from_jax_params_refuses_a_mismatched_tree():
     other = make_smoke(get_config("phi4-mini-3.8b"))
     with pytest.raises(ValueError):
         from_jax_params(tree, other, "cpu")
-
-
-@pytest.mark.parametrize("arch", REFUSED_ARCHS)
-def test_moe_and_ssm_archs_are_refused(arch):
-    cfg = make_smoke(get_config(arch))
-    for call in (lambda: PT.init_params(cfg, None, "cpu"),
-                 lambda: PT.init_params(cfg, None, "meta"),
-                 lambda: PT.init_cache(cfg, 1, 8, torch.float32, "cpu"),
-                 lambda: from_jax_params({}, cfg, "cpu")):
-        with pytest.raises(NotImplementedError, match="A.13b"):
-            call()
 
 
 def test_default_device_is_cuda():
