@@ -132,13 +132,24 @@ the kernels' operation bounds use them) and then:
    served at full width, and the serve driver on mamba2-130m; mamba2-130m
    trained at full width through the training driver, crashed at step 12
    and restarted, its replayed steps within 1e-6 of the clean run's; one
-   ``{"lm": ...}`` line a part.
+   ``{"lm": ...}`` line a part;
+14. the mesh side of the LMs (:func:`lm_mesh_phase`), in its own launch
+   window (no kernel either): gemma3-1b at full width trained on one rank
+   (steps 0-3, a checkpoint at step 2), then restored by the training
+   driver on a (1, 2) mesh of two gloo ranks sharing the card (DTensor
+   state; each rank attends 2 of the 4 heads over the one KV head) and
+   trained on, its steps 2-3 within 2e-2 relative of the single rank's;
+   gemma3-1b's bf16 gradients on that mesh as close to the f32 gradients
+   as one rank's bf16 ones are (within twice, per leaf by norm); one
+   qwen2-moe MoE layer at full width, expert-parallel on the (1, 2) mesh
+   against the grouped path on one rank (f32: JAX's 2e-3 / 1e-4; bf16:
+   two roundings); one ``{"lm_mesh": ...}`` line a part.
 
 It prints the card, the measured rates, one JSON line per CSR-kernel
 shape, per engine run, per dynamic batch size, per serve trace, per obs
 pass, per driver run and per graph's (and the target query's and the
 dynamic phase's) kernel launches, one ``{"kernels": ...}`` line
-(``launches`` summed over the seven counted windows, ``launches_by_path``
+(``launches`` summed over the nine counted windows, ``launches_by_path``
 split), and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line; so does a machine
 without a CUDA GPU.
@@ -149,8 +160,10 @@ import json
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -621,11 +634,72 @@ def dense_kernel_phase(g, device, rng) -> dict:
     return out
 
 
+#: scipy's Dijkstra for the (graph, sources) pairs known once the graphs
+#: are built, in child processes started then (up to ORACLE_SPLIT a pair,
+#: each on a share of the sources), so that it runs while the card works
+#: (scipy holds the GIL: a thread would stall the host side of every
+#: phase); ``oracle`` waits for the result.  Keyed by the graph object,
+#: which the entry holds.
+ORACLE_JOBS: dict = {}
+ORACLE_SPLIT = 4
+ORACLE_CHILD = r"""
+import sys, types
+import numpy as np
+from repro_torch.launch.sssp_run import scipy_distances
+d = np.load(sys.argv[1])
+cg = types.SimpleNamespace(n=int(d["n"]), indptr=d["indptr"],
+                           indices=d["indices"], weights=d["weights"])
+np.save(sys.argv[2], scipy_distances(
+    cg, [int(v) for v in sys.argv[3].split(",")]))
+"""
+
+
+def prefetch_oracle(cg, sources, tmp: str) -> None:
+    """Start scipy's distances of ``cg`` from ``sources`` in children."""
+    import numpy as np
+
+    i = len(ORACLE_JOBS)
+    src = np.asarray(sources)
+    inp = f"{tmp}/oracle{i}.npz"
+    np.savez(inp, n=cg.n, indptr=cg.indptr, indices=cg.indices,
+             weights=cg.weights)
+    children = []
+    for j, part in enumerate(np.array_split(src, min(ORACLE_SPLIT,
+                                                     len(src)))):
+        out = f"{tmp}/oracle{i}_{j}.npy"
+        with open(out + ".err", "w") as err:
+            children.append((subprocess.Popen(
+                [sys.executable, "-c", ORACLE_CHILD, inp, out,
+                 ",".join(str(int(v)) for v in part)],
+                stdout=subprocess.DEVNULL, stderr=err, env=dict(
+                    os.environ, PYTHONPATH=str(
+                        Path(__file__).resolve().parent / "src"))), out))
+    ORACLE_JOBS[id(cg), tuple(int(v) for v in src)] = (cg, children)
+
+
+def stop_oracles() -> None:
+    """End the children no ``oracle`` call waited for."""
+    for _, children in ORACLE_JOBS.values():
+        for proc, _ in children:
+            proc.kill()
+            proc.wait()
+    ORACLE_JOBS.clear()
+
+
 def oracle(cg, sources):
+    import numpy as np
+
     from repro_torch.launch.sssp_run import scipy_distances
 
     t0 = time.perf_counter()
-    out = scipy_distances(cg, sources)
+    job = ORACLE_JOBS.pop((id(cg), tuple(int(v) for v in sources)), None)
+    if job is None:
+        out = scipy_distances(cg, sources)
+    else:
+        for proc, path in job[1]:
+            check(proc.wait() == 0, f"scipy oracle child failed: "
+                  f"{Path(path + '.err').read_text()[-2000:]}")
+        out = np.concatenate([np.load(path) for _, path in job[1]])
     CLOCK["scipy_oracle"] = (CLOCK.get("scipy_oracle", 0.0)
                              + time.perf_counter() - t0)
     return out
@@ -771,6 +845,16 @@ def launches_since(wrappers: dict, before: dict) -> dict:
             if fn.launches > before[k]}
 
 
+def engine_oracle_sources(name: str, cg):
+    """The sources the engine phase checks against scipy on graph
+    ``name``: sparse-4M's multisource batch, vertex 0 elsewhere."""
+    import numpy as np
+
+    if name == "sparse":
+        return np.arange(SOURCES) * (cg.n // SOURCES)
+    return [0]
+
+
 def engine_phase(graphs: dict, device, walls: dict, wrappers: dict,
                  refs: dict) -> list:
     """The main path: every slice engine through shortest_paths.  Records
@@ -811,13 +895,14 @@ def engine_phase(graphs: dict, device, walls: dict, wrappers: dict,
         lines.append(dict(graph=name, launches=launches_since(wrappers,
                                                              before)))
         if name != "sparse":
-            rel = check_oracle(name, base.dist, oracle(cg, [0]))
+            rel = check_oracle(name, base.dist, oracle(
+                cg, engine_oracle_sources(name, cg)))
             lines.append(dict(oracle="scipy.sparse.csgraph.dijkstra",
                               graph=name, max_rel_err=rel))
             continue
 
         # sparse-4M: the batched engine and a point-to-point query.
-        sources = np.arange(SOURCES) * (cg.n // SOURCES)
+        sources = engine_oracle_sources(name, cg)
         ms, wall = run_engine(cg, sources, "multisource_csr", device)
         check(ms.converged, "multisource_csr: not converged")
         check(ms.dist[0].tobytes() == base.dist.tobytes(),
@@ -1785,12 +1870,15 @@ PIPELINE_RUNS = ((100_000, 300_000), (2000, 6000))
 #: process start on the card machine's host), and Table III's n = 1000
 #: legs hold Alg. 2 on 8 gloo ranks for ≈ 20 s a solve, so the quick run's
 #: 30 legs take ≈ 20 min there.  Kept: P = 1 and 2 of Table IV and of weak
-#: scaling (each efficiency a real ratio), weak scaling for
-#: ``frontier_sharded`` only (Table IV's legs drive the two dense engines),
-#: and Table III's (100, 300) leg; the tables' full numbers come from
+#: scaling (each efficiency a real ratio), Table IV for ``bellman_sharded``
+#: only (``dijkstra_sharded``'s P = 2 leg, an all-reduce a vertex on gloo,
+#: is the slowest; Alg. 2 still runs at dense-2000 in the sharded phase),
+#: weak scaling for ``frontier_sharded`` only, and
+#: Table III's (100, 300) leg; the tables' full numbers come from
 #: ``benchmarks.run`` on its own (PERF.md §5)
 PAPER_CUTS = (("table3_density", "PAIRS", slice(2, 3)),
               ("table4_scaling", "PROCS", slice(0, 2)),
+              ("table4_scaling", "ENGINES", slice(1, 2)),
               ("weak_scaling", "PROCS", slice(0, 2)),
               ("weak_scaling", "ENGINES", slice(3, 4)))
 #: the paper benches' CSVs: (file, its time columns)
@@ -1944,6 +2032,13 @@ def event_call(fn) -> tuple:
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def host_call(fn) -> tuple:
+    """``fn()`` and its time in ms by the host clock (a CPU rank's)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def event_ms(fn, reps: int) -> float:
@@ -2187,13 +2282,14 @@ def lm_ssm_serve(device, lines: list, rng) -> None:
             tokens_per_s=drv["tokens_per_s"]))})
 
 
-def _train_start(argv, ckpt_dir) -> subprocess.Popen:
-    """The training driver with ``argv`` into ``ckpt_dir``, started."""
+def _train_start(argv, ckpt_dir, **env) -> subprocess.Popen:
+    """The training driver with ``argv`` into ``ckpt_dir``, started (with
+    ``env`` added to its environment)."""
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", *argv,
          "--ckpt-dir", ckpt_dir], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, REPRO_EMIT_LOSSES="1",
+        env=dict(os.environ, REPRO_EMIT_LOSSES="1", **env,
                  PYTHONPATH=str(Path(__file__).resolve().parent / "src")))
 
 
@@ -2458,6 +2554,329 @@ def lm_phase(device, lines: list, cfg=None) -> None:
     lines.append({"lm_train_s": time.perf_counter() - t0})
 
 
+#: the mesh phase: gemma3-1b at full width trained on one rank (steps
+#: 0-3, a checkpoint at step 2; batch 2 x seq 256: at seq 512 the phase
+#: took 185 s of its 120 s, PERF.md §6), then restored from step 2 by the
+#: training driver on a (data, model) = (1, 2) mesh of gloo ranks sharing
+#: the card (each rank attends 2 of the 4 heads over the one KV head)
+#: and trained on (steps 2-3), its losses within LM_MESH_RTOL relative of
+#: the single rank's; gemma3-1b's bf16 gradients on that mesh held to the
+#: f32 gradients of the same parameters (LM_MESH_GRAD); and one qwen2-moe
+#: MoE layer at full width, the
+#: expert-parallel path on the (1, 2) mesh against the grouped path on
+#: one rank, in f32 within JAX's bounds (tests/test_integration.py:200)
+#: and in bf16 within LM_MESH_BF16_ULPS roundings of the output
+LM_MESH_ARCH = "gemma3-1b"
+LM_MESH_TRAIN = dict(steps=4, batch=2, seq=256, ckpt_at=2, data=1, model=2)
+LM_MESH_RTOL = 2e-2
+LM_MESH_MOE = dict(arch="qwen2-moe-a2.7b", batch=4, seq=512, data=1,
+                   model=2)
+LM_MESH_EP_TOL = 2e-3
+LM_MESH_AUX_TOL = 1e-4
+#: the expert-parallel combine rounds twice more than the grouped one (the
+#: rank's partial sum, then the all-reduce), each by at most 2 ** -8 of
+#: the value: in bf16 the outputs may differ by that many roundings at the
+#: output's largest magnitude
+LM_MESH_BF16_ULPS = 2
+LM_MESH_REPS = 5
+#: the gradient check: gemma3-1b at full width, bf16, one batch.  In bf16
+#: the mesh cannot match one rank (its partial sums round apart, and the
+#: difference grows through the layers), so both are held to the f32
+#: gradient of the same bf16-valued parameters: each leaf's error by
+#: Frobenius norm relative to the f32 leaf's, the mesh's worst leaf within
+#: ``factor`` times one rank's worst.  A gradient scaled by 2 reads about
+#: 1 there, one missing a rank's partial sum 0.7-1.1, a sound mesh about
+#: one rank's own reading (tests/test_torch_mesh_model.py)
+LM_MESH_GRAD = dict(batch=2, seq=256, factor=2.0)
+#: where the models' path on a mesh needed more than DTensor's own rules
+#: (PERF.md §3)
+LM_MESH_OPS = {
+    "aten.mm.dtype / aten.bmm.dtype": "sharding strategy registered, "
+    "mm's / bmm's (sharding/rules.py register_strategies)",
+    "aten.gather (the gold logit of lm_loss)": "a masked sum over the "
+    "vocab on a DTensor (models/transformer.py lm_loss)",
+    "MoE routing (sort, argsort, scatter, gather)": "on each rank's block "
+    "(to_local with named gradient placements; models/moe.py)",
+}
+
+
+def _grad_errors(grads, ref) -> list:
+    """Each leaf's ||g - r|| / ||r|| (in f32, on the leaves' device)."""
+    return [float((g.float() - r.float()).norm()
+                  / r.float().norm().clamp_min(1e-30))
+            for g, r in zip(grads, ref)]
+
+
+def _mesh_grad_part(group, mesh, spec: dict) -> dict:
+    """The gradient check on this rank (see :data:`LM_MESH_GRAD`): the
+    parameters and batch drawn from the same seeds on every rank, the
+    gradients on the mesh, then on rank 0 alone (the others waiting) one
+    rank's bf16 gradients and the f32 ones of the same values."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.tree import leaves, tree_map
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import value_and_grad
+
+    dev = group.device
+    call = event_call if dev.type == "cuda" else host_call
+    cfg = spec.get("grad_cfg") or get_config(LM_MESH_ARCH)
+    g = spec["grad"]
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tok = torch.randint(0, cfg.vocab_size, (g["batch"], g["seq"]),
+                        generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+    rep = [Replicate()] * mesh.ndim
+    dt = lambda t: DTensor.from_local(t, mesh, rep, run_check=False)
+    with rules.set_mesh(mesh):
+        (loss_m, _, gm), mesh_ms = call(lambda: value_and_grad(
+            tree_map(dt, params), {k: dt(v) for k, v in batch.items()},
+            cfg))
+    gm = [t.full_tensor() for t in leaves(gm)]
+    loss_m = float(loss_m.full_tensor())
+    if group.rank:
+        dist.barrier()
+        return {}
+    shape = rules.AbstractMesh((spec["data"], spec["model"]),
+                               ("data", "model"))
+    with rules.set_mesh(shape):
+        (loss_1, _, g1), one_ms = call(
+            lambda: value_and_grad(params, batch, cfg))
+        g1 = leaves(g1)
+        c32 = dataclasses.replace(cfg, param_dtype="float32")
+        loss_f, _, gf = value_and_grad(
+            tree_map(lambda t: t.float(), params), batch, c32)
+        gf = leaves(gf)
+    dist.barrier()
+    e_one, e_mesh = _grad_errors(g1, gf), _grad_errors(gm, gf)
+    worst = max(range(len(gf)), key=lambda i: e_mesh[i])
+    return dict(
+        arch=LM_MESH_ARCH, **g, dtype=cfg.param_dtype, leaves=len(gf),
+        loss_mesh=loss_m, loss_one_rank=float(loss_1),
+        loss_f32=float(loss_f), one_rank_vs_f32_worst_leaf=max(e_one),
+        mesh_vs_f32_worst_leaf=max(e_mesh),
+        mesh_vs_one_rank_worst_leaf=max(_grad_errors(gm, g1)),
+        mesh_worst_leaf_index=worst, one_rank_at_that_leaf=e_one[worst],
+        finite=all(bool(torch.isfinite(t.float()).all()) for t in gm),
+        mesh_ms=mesh_ms, one_rank_ms=one_ms)
+
+
+def _mesh_rank(group, spec: dict) -> dict:
+    """One rank of the mesh checks: the gradient check
+    (:func:`_mesh_grad_part`), then the MoE layer's parameters and ``x``
+    drawn from the same seeds on every rank; the expert-parallel path on
+    the mesh against the grouped path on this rank alone, in f32 and in
+    bf16, each timed by CUDA events."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import init_moe, moe_ep, moe_gspmd
+    from repro_torch.models.tree import tree_map
+    from repro_torch.sharding import rules
+
+    import torch.distributed as dist
+
+    dev = group.device
+    call = event_call if dev.type == "cuda" else host_call
+    mesh = make_host_mesh(spec["data"], spec["model"],
+                          device_type=dev.type)
+    out = {"grad": _mesh_grad_part(group, mesh, spec)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    base = spec.get("cfg") or get_config(spec["arch"])
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, param_dtype=dt)
+        p = init_moe(cfg, torch.Generator(dev).manual_seed(0), dev)
+        x = torch.randn((spec["batch"], spec["seq"], cfg.d_model),
+                        generator=torch.Generator(dev).manual_seed(1),
+                        device=dev).to(getattr(torch, dt))
+        rep = [Replicate()] * mesh.ndim
+        dp = tree_map(lambda t: DTensor.from_local(t, mesh, rep,
+                                                   run_check=False), p)
+        dx = DTensor.from_local(x, mesh, rep, run_check=False)
+        with torch.no_grad():
+            with rules.set_mesh(mesh):
+                ep = lambda: moe_ep(dp, dx, cfg, mesh)
+                (o_e, a_e), _ = call(ep)
+                with CommDebugMode() as comm:
+                    ep()
+                e_ms = [call(ep)[1] for _ in range(LM_MESH_REPS)]
+            o_e, a_e = o_e.full_tensor(), a_e.full_tensor()
+            # the grouped path on rank 0 alone, the other ranks waiting
+            if group.rank:
+                dist.barrier()
+                continue
+            (o_g, a_g), _ = call(lambda: moe_gspmd(p, x, cfg))
+            g_ms = [call(lambda: moe_gspmd(p, x, cfg))[1]
+                    for _ in range(LM_MESH_REPS)]
+            dist.barrier()
+            err = (o_e.float() - o_g.float()).abs()
+            out[dt] = dict(
+                max_abs_err=float(err.max()),
+                max_err_over_out_max=float(err.max()
+                                           / o_g.float().abs().max()),
+                out_max=float(o_g.float().abs().max()),
+                aux_ep=float(a_e), aux_grouped=float(a_g),
+                aux_abs_err=abs(float(a_e) - float(a_g)),
+                ep_ms=statistics.median(e_ms),
+                grouped_one_rank_ms=statistics.median(g_ms),
+                ep_collectives={str(k).rsplit(".", 1)[-1]: int(v) for k, v
+                                in comm.get_comm_counts().items()},
+                finite=bool(torch.isfinite(o_e.float()).all()))
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
+    return out
+
+
+def lm_mesh_phase(device, lines: list, card: str) -> None:
+    """The mesh side of the LMs on the card (no kernel of the port is on
+    this path).
+
+    1. :data:`LM_MESH_ARCH` at full width (bf16, random parameters from
+       seed 0) on one rank in this process, steps 0-3 as the training
+       driver runs them (its seed, data, AdamW and checkpoint format), a
+       checkpoint of step 2; then ``python -m repro_torch.launch.train
+       --data-axis 1 --model-axis 2 --shared-card`` (two gloo ranks on
+       the card, DTensor state) restores step 2 and trains steps 2-3, its
+       losses within :data:`LM_MESH_RTOL` relative of the single rank's;
+       its ``STEPSTATS`` line (``REPRO_STEP_STATS``) gives each step's
+       time by CUDA events, the last step's collectives by kind and each
+       rank's peak memory.
+    2. On a second (1, 2) mesh of gloo ranks (:func:`_mesh_rank`):
+       :data:`LM_MESH_ARCH`'s bf16 gradients at full width held to the f32
+       ones (:data:`LM_MESH_GRAD`), and one :data:`LM_MESH_MOE` MoE layer
+       at full width, expert-parallel against the grouped path.
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core._dist import spawn
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.state import init_train_state, state_to_jax
+    from repro_torch.train.step import make_train_step
+
+    tr = LM_MESH_TRAIN
+    argv = ["--arch", LM_MESH_ARCH, "--device", str(device), "--steps",
+            str(tr["steps"]), "--batch", str(tr["batch"]), "--seq",
+            str(tr["seq"]), "--log-every", "1"]
+    shared = ["--shared-card"] if device.type == "cuda" else []
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        # the single rank in process, as the driver runs it (its seed,
+        # data, optimizer and checkpoint), the checkpoint at ckpt_at only
+        t0 = time.perf_counter()
+        cfg = get_config(LM_MESH_ARCH)
+        opt = OptConfig(lr=3e-4, warmup_steps=min(20, tr["steps"] // 5 + 1),
+                        total_steps=tr["steps"])
+        state = init_train_state(cfg, opt,
+                                 torch.Generator(device).manual_seed(0),
+                                 device)
+        pipe = SyntheticPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=tr["seq"],
+            global_batch=tr["batch"], seed=0, d_model=cfg.d_model))
+        step = make_train_step(cfg, opt)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        losses, single_ms = [], []
+        for i in range(tr["steps"]):
+            if i == tr["ckpt_at"]:
+                save_checkpoint(mesh_dir, state_to_jax(state, cfg), i,
+                                {"step": i})
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in pipe.batch_at(i).items()}
+            (state, m), ms = event_call(lambda: step(state, batch))
+            losses.append(float(m["loss"]))
+            single_ms.append(ms)
+        single_peak = (torch.cuda.max_memory_allocated(device)
+                       if device.type == "cuda" else None)
+        del state, m, batch
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        single_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        mesh, resumed, mesh_ms, mesh_s = _train_end(_train_start(
+            argv + ["--ckpt-every", str(10 ** 6), "--data-axis",
+                    str(tr["data"]), "--model-axis", str(tr["model"]),
+                    *shared], mesh_dir, REPRO_STEP_STATS="1"), t1)
+    check(mesh.returncode == 0 and resumed is not None,
+          f"lm_mesh: the mesh run failed: {mesh.stderr[-3000:]}")
+    restored = re.search(r"restored step (\d+)", mesh.stdout)
+    check(restored is not None and int(restored.group(1)) == tr["ckpt_at"],
+          f"lm_mesh: the mesh run did not restore step {tr['ckpt_at']}: "
+          f"{mesh.stdout[:300]}")
+    stats = [json.loads(ln[len("STEPSTATS "):])
+             for ln in mesh.stdout.splitlines()
+             if ln.startswith("STEPSTATS ")]
+    want = np.array(losses[tr["ckpt_at"]:])
+    rel = np.abs(np.array(resumed) - want) / np.abs(want)
+    check(len(resumed) == len(want) and np.isfinite(resumed).all()
+          and float(rel.max()) <= LM_MESH_RTOL,
+          f"lm_mesh: mesh steps {tr['ckpt_at']}-{tr['steps'] - 1} off by "
+          f"{rel.max()} relative (> {LM_MESH_RTOL}): {resumed} vs "
+          f"{want.tolist()}")
+    lines.append({"lm_mesh": dict(
+        part="train_restore", arch=LM_MESH_ARCH, **tr, dtype="bfloat16",
+        mesh_shape=[tr["data"], tr["model"]], ranks_share_card=True,
+        backend="gloo", single_losses=losses, mesh_losses=resumed,
+        restored_step=int(restored.group(1)), max_rel_err=float(rel.max()),
+        rtol=LM_MESH_RTOL, single_wall_s=single_s, mesh_wall_s=mesh_s,
+        single_step_ms=single_ms, single_peak_bytes=single_peak,
+        mesh_step_ms_host=mesh_ms,
+        mesh_step_stats=stats[0] if stats else None,
+        ops_needing_more_than_dtensor=LM_MESH_OPS, card=card)})
+
+    moe = LM_MESH_MOE
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = spawn(_mesh_rank, moe["data"] * moe["model"], backend="gloo",
+                    store_dir=tmp, args=(dict(moe, grad=LM_MESH_GRAD),),
+                    timeout=600,
+                    shared_device=(str(device) if device.type == "cuda"
+                                   else None))[0]
+    gr = got["grad"]
+    check(gr["finite"] and gr["mesh_vs_f32_worst_leaf"]
+          <= LM_MESH_GRAD["factor"] * gr["one_rank_vs_f32_worst_leaf"],
+          f"lm_mesh: bf16 gradients on the mesh further from f32 than "
+          f"{LM_MESH_GRAD['factor']} x one rank's: {gr}")
+    lines.append({"lm_mesh": dict(
+        part="grad", **gr, mesh_shape=[moe["data"], moe["model"]],
+        card=card)})
+    f32, bf = got["float32"], got["bfloat16"]
+    check(f32["finite"] and f32["max_abs_err"] <= LM_MESH_EP_TOL
+          and f32["aux_abs_err"] <= LM_MESH_AUX_TOL,
+          f"lm_mesh: moe_ep f32 vs grouped: {f32}")
+    check(bf["finite"]
+          and bf["max_err_over_out_max"] <= LM_MESH_BF16_ULPS * 2.0 ** -8
+          and bf["aux_abs_err"] <= LM_MESH_AUX_TOL,
+          f"lm_mesh: moe_ep bf16 vs grouped: {bf}")
+    lines.append({"lm_mesh": dict(
+        part="moe_ep", **{k: v for k, v in moe.items()
+                          if k not in ("cfg", "grad_cfg")},
+        experts_padded=64, top_k=4, shared=4,
+        f32=f32, bf16=bf, tol=dict(f32_out=LM_MESH_EP_TOL,
+                                   aux=LM_MESH_AUX_TOL,
+                                   bf16_err_over_out_max=LM_MESH_BF16_ULPS
+                                   * 2.0 ** -8),
+        peak_bytes_rank0=got["peak_bytes"],
+        wall_s=time.perf_counter() - t0, card=card)})
+
+
 def serial_check(device) -> dict:
     """The paper's Alg. 1 on the device against bellman_csr, bitwise."""
     from repro_torch.core.csr import sparse_csr_graph
@@ -2519,6 +2938,10 @@ def main() -> int:
               f"adj={g.adj.nbytes} bytes")
     print(f"graph generation: {time.perf_counter() - t0:.1f} s")
     CLOCK["graphs"] = time.perf_counter() - t0
+    # the engine phase's scipy references, computed beside the card's work
+    oracle_dir = tempfile.mkdtemp(prefix="chip_smoke_oracle")
+    for name, cg in graphs.items():
+        prefetch_oracle(cg, engine_oracle_sources(name, cg), oracle_dir)
 
     lines: list = []
     try:
@@ -2624,7 +3047,8 @@ def main() -> int:
                      for name in ("sparse-4M", "hub-1M")},
                     device, wrappers, lines)),
                 ("paper", lambda: paper_phase(device, wrappers, lines)),
-                ("lm", lambda: lm_phase(device, lines))):
+                ("lm", lambda: lm_phase(device, lines)),
+                ("lm_mesh", lambda: lm_mesh_phase(device, lines, card))):
             t0 = time.perf_counter()
             torch.cuda.synchronize()
             for fn in wrappers.values():
@@ -2645,6 +3069,9 @@ def main() -> int:
         print(json.dumps({"clock_s": CLOCK}))
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_oracles()
+        shutil.rmtree(oracle_dir, ignore_errors=True)
 
     for line in lines:
         print(json.dumps(line))

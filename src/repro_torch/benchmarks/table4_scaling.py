@@ -22,6 +22,7 @@ from repro_torch.benchmarks.common import (device_meta, ranks_label,
                                            run_with_procs, write_csv)
 
 PROCS = (1, 2, 4, 8, 16)
+ENGINES = ("dijkstra_sharded", "bellman_sharded")
 
 
 def _time_of(out: str) -> float:
@@ -33,7 +34,7 @@ def run(quick: bool = False, n: int = 2048, ranks_device="cuda"):
     m = 3 * n
     rows = []
     base = {}
-    for engine in ("dijkstra_sharded", "bellman_sharded"):
+    for engine in ENGINES:
         for procs in PROCS if not quick else PROCS[:4]:
             out = run_with_procs(
                 ["--engine", engine, "--nodes", str(n), "--edges", str(m),

@@ -15,7 +15,12 @@ Trees are the port's (dicts, lists, tuples, dataclasses of tensors) in
 whatever layout the caller gives; ``train.state.state_to_jax`` gives a
 train state JAX's stacked layout, and then JAX's ``restore_checkpoint``
 reads the port's files and the port reads JAX's.  Restore loads logical
-tensors on the CPU; loading onto a mesh (``shardings=``) is A.13c.
+tensors on the CPU, or with ``shardings=`` (a tree of
+``sharding.rules.Spec``) distributes each leaf by its spec on a device
+mesh (reshard-on-load: every rank reads the full leaf and keeps its
+block).  A state that holds DTensors is saved as full logical arrays,
+gathered on every rank and written by rank 0 alone, so a checkpoint
+written on any mesh restores on any other, and in JAX.
 """
 from __future__ import annotations
 
@@ -29,8 +34,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.tree import (keystr, leaves_with_path, tree_map,
-                                     unflatten)
+from repro_torch.models.tree import (keystr, leaves, leaves_with_path,
+                                     tree_map, unflatten)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -58,6 +63,26 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
                             else arr)
 
 
+def _host_tree(state: Any) -> tuple[Any, bool]:
+    """(``state`` as full CPU tensors, whether this rank writes).  A
+    DTensor leaf is gathered whole on every rank (a collective: every
+    rank calls this), and only rank 0 of the process group writes."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.rules import is_dtensor
+
+    mesh_state = any(is_dtensor(t) for t in leaves(state))
+    writer = not (mesh_state and dist.is_initialized()
+                  and dist.get_rank() != 0)
+
+    def host(t):
+        if is_dtensor(t):
+            t = t.full_tensor()           # a collective when sharded
+        return t.detach().to("cpu", copy=True) if writer else None
+
+    return tree_map(host, state), writer
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     if not os.path.isdir(ckpt_dir):
         return None
@@ -68,10 +93,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def save_checkpoint(ckpt_dir: str, state: Any, step: int,
                     extra: Optional[dict] = None) -> str:
-    """Synchronous atomic save.  Returns the committed directory."""
+    """Synchronous atomic save.  Returns the committed directory.  Every
+    rank of a DTensor state calls it; rank 0 writes."""
+    state, writer = _host_tree(state)
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if not writer:
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp.step_{step}")
-    final = os.path.join(ckpt_dir, f"step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -97,11 +126,22 @@ def restore_checkpoint(ckpt_dir: str, state_shape: Any, *,
                        shardings: Any = None) -> tuple[Any, dict]:
     """Load the latest (or given) step into the structure of
     ``state_shape`` (a tree of anything with ``.shape``: tensors, meta
-    tensors).  Returns (state of CPU tensors, manifest extra)."""
+    tensors).  Returns (state, manifest extra): CPU tensors, or with
+    ``shardings`` (a tree of specs of the same structure) DTensors laid
+    out by them on the ambient mesh (``sharding.rules.set_mesh``), which
+    must be a ``DeviceMesh``."""
+    spec_leaves = [None] * len(leaves(state_shape))
     if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (shardings=) comes with the mesh side "
-            "of the port (ROADMAP A.13c)")
+        from repro_torch.sharding import rules
+        mesh = rules.get_mesh()
+        if mesh is None or isinstance(mesh, rules.AbstractMesh):
+            raise ValueError("restoring with shardings= needs an ambient "
+                             f"device mesh; got {mesh!r}")
+        spec_leaves = [s for _, s in leaves_with_path(
+            shardings, is_leaf=lambda x: isinstance(x, rules.Spec))]
+        if len(spec_leaves) != len(leaves(state_shape)):
+            raise ValueError(f"{len(spec_leaves)} shardings for "
+                             f"{len(leaves(state_shape))} leaves")
     s = step if step is not None else latest_step(ckpt_dir)
     if s is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -110,7 +150,8 @@ def restore_checkpoint(ckpt_dir: str, state_shape: Any, *,
         manifest = json.load(f)
     by_name = {m["name"]: m for m in manifest["leaves"]}
     out = []
-    for path, leaf in leaves_with_path(state_shape):
+    for (path, leaf), spec in zip(leaves_with_path(state_shape),
+                                  spec_leaves):
         name = _leaf_name(path)
         meta = by_name[name]
         t = _from_numpy(np.load(os.path.join(d, name + ".npy")),
@@ -119,8 +160,20 @@ def restore_checkpoint(ckpt_dir: str, state_shape: Any, *,
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {tuple(t.shape)} vs "
                 f"expected {tuple(leaf.shape)}")
+        if spec is not None:
+            t = _distribute(t, mesh, spec)
         out.append(t)
     return unflatten(state_shape, out), manifest.get("extra", {})
+
+
+def _distribute(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The full leaf ``t`` (every rank holds it) as a DTensor laid out by
+    ``spec``: each rank keeps its block, nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding.rules import placements
+    return distribute_tensor(t, mesh, placements(spec, mesh),
+                             src_data_rank=None)
 
 
 class CheckpointManager:
@@ -140,8 +193,9 @@ class CheckpointManager:
     def save(self, state: Any, step: int, extra: Optional[dict] = None,
              block: bool = False):
         self.wait()
-        host_state = tree_map(
-            lambda t: t.detach().to("cpu", copy=True), state)
+        host_state, writer = _host_tree(state)
+        if not writer:
+            return
 
         def _write():
             try:

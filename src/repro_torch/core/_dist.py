@@ -146,6 +146,66 @@ class ShardGroup:
         self.close(wait=exc_type is None)
 
 
+_GATHER_SHIM: list = []
+
+
+def _group_of(group):
+    """The ProcessGroup a functional collective's ``group`` argument
+    names, or None for a form this does not read."""
+    from torch.distributed import distributed_c10d as c10d
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(group, dist.ProcessGroup):
+        return group
+    if (isinstance(group, tuple) and len(group) == 2
+            and isinstance(group[0], DeviceMesh)):
+        return group[0].get_group(group[1])
+    if isinstance(group, DeviceMesh) and group.ndim == 1:
+        return group.get_group()
+    if isinstance(group, str):
+        return c10d._resolve_process_group(group)
+    return None
+
+
+def _gathers_direct(t: torch.Tensor) -> bool:
+    """Whether the gather shim takes ``t`` (a CUDA tensor)."""
+    return t.is_cuda
+
+
+def install_gloo_cuda_gather() -> None:
+    """Route the functional all-gather of a CUDA tensor on a gloo group
+    through ``dist.all_gather_into_tensor``.  DTensor's Shard -> Replicate
+    issues ``_c10d_functional.all_gather_into_tensor``, which crashes
+    (SIGSEGV in its wait) on CUDA tensors under gloo in torch 2.11, while
+    the direct collective carries them (``tools/gloo_cuda_probe.py``).
+    Other tensors and backends keep torch's own path.  Once a process;
+    :func:`repro_torch.launch.mesh.make_host_mesh` installs it for a
+    CUDA mesh over gloo."""
+    if _GATHER_SHIM:
+        return
+    import torch.distributed._functional_collectives as funcol
+
+    def shim(orig):
+        def gather(self, gather_dim, group, tag=""):
+            pg = _group_of(group) if _gathers_direct(self) else None
+            if pg is None or dist.get_backend(pg) != "gloo":
+                return orig(self, gather_dim, group, tag)
+            n = pg.size()
+            x = self.contiguous()
+            out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+            _all_gather(out, x, group=pg)
+            if gather_dim != 0:
+                out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+            return out
+        return gather
+
+    # DTensor gathers through all_gather_tensor in torch 2.11 and through
+    # all_gather_single, its new name, in 2.13 (which 2.11 lacks)
+    for name in ("all_gather_tensor", "all_gather_single"):
+        if hasattr(funcol, name):
+            setattr(funcol, name, shim(getattr(funcol, name)))
+    _GATHER_SHIM.append(True)
+
+
 def check_backend(backend: str, device, *,
                   shared: bool = False) -> torch.device:
     """``torch.device(device)``, refusing a backend that does not carry
@@ -206,16 +266,19 @@ def open_group(rank: int, size: int, *, backend: str, device, store_dir,
     return ShardGroup(rank=rank, size=size, device=dev, backend=backend)
 
 
-def _rank_main(fn, rank, size, backend, store_dir, args, results, timeout):
+def _rank_main(fn, rank, size, backend, store_dir, args, results, timeout,
+               device=None, shared=False):
     """One spawned rank: join the group, run ``fn``, report its result or
     its traceback on ``results``."""
     try:
         if backend == "gloo":
             # P ranks share the host's cores: one intra-op thread each
             torch.set_num_threads(1)
-        device = "cpu" if backend == "gloo" else f"cuda:{rank}"
+        if device is None:
+            device = "cpu" if backend == "gloo" else f"cuda:{rank}"
         with open_group(rank, size, backend=backend, device=device,
-                        store_dir=store_dir, timeout=timeout) as group:
+                        store_dir=store_dir, timeout=timeout,
+                        shared=shared) as group:
             out = fn(group, *args)
         results.put((rank, True, out))
     except Exception:             # the boundary: report, the parent raises
@@ -224,11 +287,13 @@ def _rank_main(fn, rank, size, backend, store_dir, args, results, timeout):
 
 def spawn(fn, nprocs: int, *, backend: str, store_dir, args=(),
           timeout: float = DEFAULT_TIMEOUT,
-          start_method: str = "spawn") -> list:
+          start_method: str = "spawn", shared_device=None) -> list:
     """Run ``fn(group, *args)`` on ``nprocs`` new processes, rank r on
-    ``cuda:r`` for NCCL or on the CPU for gloo, and return the results by
-    rank.  ``fn``, ``args`` (when spawned) and the results are pickled,
-    so ``fn`` is a module-level function.  ``start_method`` "fork" skips
+    ``cuda:r`` for NCCL or on the CPU for gloo (or, with
+    ``shared_device``, gloo ranks all on that one CUDA card: see
+    :func:`check_backend`), and return the results by rank.  ``fn``,
+    ``args`` (when spawned) and the results are pickled, so ``fn`` is a
+    module-level function.  ``start_method`` "fork" skips
     each rank's import of torch; it is for gloo ranks of a process that
     has run no torch operation yet (a forked child inherits the parent's
     thread pools half-made), and NCCL ranks always spawn.  Raises
@@ -241,14 +306,21 @@ def spawn(fn, nprocs: int, *, backend: str, store_dir, args=(),
                          f"ranks; NCCL ranks spawn, gloo ranks spawn or fork")
     if backend == "nccl":
         check_gpus(nprocs)
-    check_backend(backend, "cpu" if backend == "gloo" else "cuda:0")
+    if shared_device is not None:
+        if start_method != "spawn":
+            raise ValueError("ranks on a CUDA card spawn; they cannot fork")
+        shared_device = str(check_backend(backend, shared_device,
+                                          shared=True))
+    else:
+        check_backend(backend, "cpu" if backend == "gloo" else "cuda:0")
     os.makedirs(store_dir, exist_ok=True)
     run_dir = tempfile.mkdtemp(prefix="group-", dir=store_dir)
     ctx = mp.get_context(start_method)
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, nprocs, backend, run_dir, args, results,
-                               timeout))
+                               timeout, shared_device,
+                               shared_device is not None))
              for r in range(nprocs)]
     for p in procs:
         p.start()

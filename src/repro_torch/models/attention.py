@@ -10,16 +10,19 @@ to the dtype of ``v`` before the second product, as JAX casts them.
 
 ``q_chunk`` bounds the live score tensor to (B, H, q_chunk, T): the query
 axis is processed a chunk at a time, with the same numerics.  JAX's
-expanded-KV branch (``repro/models/attention.py:75-92``) runs only on a
-model axis wider than one device, so it waits for the mesh side of the
-port (ROADMAP A.13c).
+expanded-KV branch (``repro/models/attention.py:75-92``) is taken on a
+model axis that divides the head count and not the KV-head count, under
+an abstract mesh.  On a device mesh (DTensors) each rank attends its own
+batch rows and heads (:func:`_attend_mesh`), which is the layout that
+branch asks for, so a rank's block takes the grouped branch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import common as cm
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import constrain, dp_size, is_dtensor, tp_size
 
 NEG_INF = -1.0e30
 
@@ -68,6 +71,27 @@ def _attend_block(q, k, v, mask, attn_softcap, scale):
     """q: (B,Sq,KV,G,hd); k/v: (B,Tk,KV,hd); mask: (B,Sq,Tk) -> (B,Sq,KV,G,hd)."""
     B, Sq, KV, G, hd = q.shape
     Tk = k.shape[1]
+    # JAX's expanded-KV branch: when the KV-head count cannot shard over
+    # the model axis but the full head count can (gemma3's 1 KV head of 4
+    # at tp = 2), K/V are expanded to merged heads so the scores shard on
+    # heads instead of on the key axis
+    tp = tp_size()
+    if Sq > 1 and G > 1 and KV % tp != 0 and (KV * G) % tp == 0:
+        H = KV * G
+        kh = k[:, :, :, None, :].expand(B, Tk, KV, G, hd).reshape(B, Tk, H, hd)
+        vh = v[:, :, :, None, :].expand(B, Tk, KV, G, hd).reshape(B, Tk, H, hd)
+        qb = q.reshape(B, Sq, H, hd).permute(0, 2, 1, 3).reshape(B * H, Sq, hd)
+        kb = kh.permute(0, 2, 3, 1).reshape(B * H, hd, Tk)
+        s = cm.dot_f32(qb, kb).view(B, H, Sq, Tk) * scale
+        s = constrain(s, "scores_h")
+        if attn_softcap > 0.0:
+            s = attn_softcap * torch.tanh(s / attn_softcap)
+        s = s + mask[:, None, :, :]
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        vb = vh.permute(0, 2, 1, 3).reshape(B * H, Tk, hd)
+        out = cm.dot_f32(p.reshape(B * H, Sq, Tk), vb).to(v.dtype)
+        return out.view(B, H, Sq, hd).permute(0, 2, 1, 3).reshape(
+            B, Sq, KV, G, hd)
     qb = q.permute(0, 2, 3, 1, 4).reshape(B * KV, G * Sq, hd)
     kb = k.permute(0, 2, 3, 1).reshape(B * KV, hd, Tk)
     s = cm.dot_f32(qb, kb).view(B, KV, G, Sq, Tk) * scale
@@ -84,6 +108,10 @@ def _attend_block(q, k, v, mask, attn_softcap, scale):
 def attend(q, k, v, *, q_pos, k_pos, k_valid, causal, window,
            attn_softcap=0.0, q_chunk=0):
     """q: (B,Sq,H,hd); k,v: (B,Tk,KV,hd).  Returns (B,Sq,H,hd)."""
+    if is_dtensor(q):
+        return _attend_mesh(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                            k_valid=k_valid, causal=causal, window=window,
+                            attn_softcap=attn_softcap, q_chunk=q_chunk)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -102,6 +130,50 @@ def attend(q, k, v, *, q_pos, k_pos, k_valid, causal, window,
         m = _mask(q_pos, k_pos, k_valid, causal=causal, window=window)
         out = _attend_block(qg, k, v, m, attn_softcap, scale)
     return out.reshape(B, Sq, H, hd)
+
+
+def _attend_mesh(q, k, v, *, q_pos, k_pos, k_valid, **kw):
+    """:func:`attend` on DTensors: each rank attends its batch rows (the
+    dp axes) and its heads (the model axis, when it divides the heads),
+    the layout JAX's "scores" / "scores_h" rules give the scores.  A
+    rank's heads [m·H/tp, (m+1)·H/tp) read the KV heads they group onto:
+    a block of them when tp divides the KV heads, else the one they share
+    (the expanded-KV case, gemma3's one KV head at tp = 2).  Heads that no
+    such split fits run whole on every model rank.  Each rank's K/V
+    gradient is a partial sum over the model axis."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    tp, dp = tp_size(), dp_size()
+    H_loc = H // tp if tp > 1 and H % tp == 0 else H
+    if H_loc < H and not (H_loc % G == 0 or G % H_loc == 0):
+        H_loc = H
+    rows = Shard(0) if B % dp == 0 else Replicate()
+    split = H_loc < H
+    q_pl = rules.layout(mesh, data=rows,
+                        model=Shard(2) if split else Replicate())
+    kv_pl = rules.layout(mesh, data=rows, model=Replicate())
+    kv_grad = rules.layout(mesh, data=rows,
+                           model=Partial() if split else Replicate())
+    row_pl = rules.layout(mesh, data=rows, model=Replicate())
+    ql = rules.local_block(q, mesh, q_pl)
+    kl = rules.local_block(k, mesh, kv_pl, kv_grad)
+    vl = rules.local_block(v, mesh, kv_pl, kv_grad)
+    if split:
+        h0 = mesh.get_local_rank("model") * H_loc
+        k0, k1 = h0 // G, (h0 + H_loc - 1) // G + 1
+        kl, vl = kl[:, :, k0:k1], vl[:, :, k0:k1]
+    qp, kp, kval = (rules.local_block(t, mesh, row_pl)
+                    for t in (q_pos, k_pos, k_valid))
+    # the local block runs off the mesh: its heads are already this
+    # rank's, so JAX's expanded-KV branch (a layout for the scores) has
+    # nothing to lay out and would only copy K/V G-fold
+    with rules.set_mesh(None):
+        out = attend(ql, kl, vl, q_pos=qp, k_pos=kp, k_valid=kval, **kw)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,9 @@ one B/C group.  The scan and the state are f32 whatever the parameters'
 dtype.  The projections follow JAX's ``bf16_partial_reduce`` switch
 (:func:`repro_torch.models.common.matmul_reduce`), except decode's input
 projection, which JAX always accumulates in f32.
+
+On a device mesh (a DTensor ``x``) each rank runs the block on its own
+batch rows, whole on every model rank (:func:`_ssm_forward_mesh`).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
+from repro_torch.sharding import rules
 
 
 def init_ssm(cfg, generator, device):
@@ -138,6 +142,8 @@ def ssm_forward(p, x, cfg):
     states at the sequence's end (for decode to continue from); the conv
     tail is pre-conv, in the activations' dtype, the state f32.
     """
+    if rules.is_dtensor(x):
+        return _ssm_forward_mesh(p, x, cfg)
     Bsz, L, d = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     zxbcdt = cm.matmul_reduce(x, p["in_proj"], cfg)
@@ -156,6 +162,31 @@ def ssm_forward(p, x, cfg):
     out = _gated_out(p, y, z, x, cfg)
     conv_tail = xBC_pre[:, -(cfg.ssm_conv - 1):]
     return out, (conv_tail, final_state.float())
+
+
+def _ssm_forward_mesh(p, x, cfg):
+    """:func:`ssm_forward` on DTensors: each rank runs its batch rows (the
+    dp axes, when they divide the batch) on its own block, every model
+    rank the whole block, as a ``shard_map`` body would.  The weights'
+    gradients are partial sums over the data shards; every model rank
+    holds the same values.  (DTensor's own rules would run the block on
+    replicated tensors too, but torch 2.11's view rule refuses the
+    head split's reshape on a (1, 2) mesh.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    sharded = x.shape[0] % rules.dp_size() == 0
+    rows = Shard(0) if sharded else Replicate()
+    x_pl = rules.layout(mesh, data=rows, model=Replicate())
+    rep = (Replicate(),) * mesh.ndim
+    w_grad = rules.layout(mesh, data=Partial() if sharded else Replicate(),
+                          model=Replicate())
+    xl = rules.local_block(x, mesh, x_pl, x_pl)
+    pl = {k: rules.local_block(v, mesh, rep, w_grad) for k, v in p.items()}
+    with rules.set_mesh(None):
+        y, (conv_tail, state) = ssm_forward(pl, xl, cfg)
+    wrap = lambda t: DTensor.from_local(t, mesh, x_pl, run_check=False)
+    return wrap(y), (wrap(conv_tail), wrap(state))
 
 
 def ssm_decode(p, x, cfg, conv_state, ssm_state):

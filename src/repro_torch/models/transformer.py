@@ -35,7 +35,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.api import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import common as cm
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import constrain, is_dtensor
 
 
 #: the aten products whose outputs ``remat="dots"`` keeps
@@ -212,7 +212,16 @@ def lm_loss(params, x, labels, cfg):
         logits = logits_from_hidden(params, xc, cfg)          # (B, c, V) f32
         logits = constrain(logits, "logits")
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        if is_dtensor(logits):
+            # torch.gather on vocab-sharded DTensor logits leaves a masked
+            # partial that a later select cannot reduce; the gold logit
+            # is a masked sum over the vocab instead (one term is nonzero,
+            # so it is exact), reduced over the model axis as a partial
+            vocab = torch.arange(logits.shape[-1], device=lc.device)
+            hit = vocab == lc[..., None]
+            gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+        else:
+            gold = torch.gather(logits, -1, lc[..., None])[..., 0]
         return torch.sum((lse - gold) * vc)
 
     if chunk and S > chunk and S % chunk == 0:

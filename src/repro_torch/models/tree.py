@@ -23,18 +23,19 @@ def _children(tree):
     return None
 
 
-def leaves_with_path(tree, path=()):
-    """Yield ``(path, leaf)`` in JAX's flatten order."""
-    kids = _children(tree)
+def leaves_with_path(tree, path=(), *, is_leaf=None):
+    """Yield ``(path, leaf)`` in JAX's flatten order; ``is_leaf(node)``
+    true stops the walk at ``node`` (a spec tuple, say)."""
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         yield path, tree
         return
     for entry, sub in kids:
-        yield from leaves_with_path(sub, path + (entry,))
+        yield from leaves_with_path(sub, path + (entry,), is_leaf=is_leaf)
 
 
-def leaves(tree) -> list:
-    return [leaf for _, leaf in leaves_with_path(tree)]
+def leaves(tree, *, is_leaf=None) -> list:
+    return [leaf for _, leaf in leaves_with_path(tree, is_leaf=is_leaf)]
 
 
 def tree_map(fn, tree, *rest):

@@ -1,26 +1,503 @@
-"""The single-device part of ``repro/sharding/rules.py``.
+"""Logical-axis -> mesh-axis sharding rules with divisibility fallback
+(port of ``repro/sharding/rules.py``).
 
-The JAX package maps logical activation axes onto the ambient device mesh.
-Off a mesh its ``constrain`` returns its input unchanged and ``dp_size`` /
-``tp_size`` return 1 (``repro/sharding/rules.py:222-249``); the port runs
-its models on one device, so that is all of their behaviour here.  The
-models call ``constrain`` where JAX's do, so the mesh rules (ROADMAP
-A.13c) fill in one module.
+MaxText-style: every tensor dim carries an ordered preference list of
+*logical* axes; a logical axis resolves to one or more mesh axes ("dp" ->
+("pod", "data") on the multi-pod mesh); an assignment is taken only if
+the dim is divisible by the product of the mesh-axis sizes and no mesh
+axis is used twice in one spec.  Anything unassigned is replicated.
+
+Scheme (baseline), as JAX's:
+  batch                  -> dp  = ("pod", "data")
+  heads/ff/vocab/experts -> tp  = ("model",)
+  param non-TP dim       -> fsdp = ("pod", "data")   (ZeRO-3-style)
+  decode KV cache        -> batch over dp, kv-heads over tp,
+                            sequence over dp when batch=1 (long_500k).
+
+A spec is a :class:`Spec`, one entry a tensor dim: a mesh-axis name, a
+tuple of names, or None.  A mesh is either an :class:`AbstractMesh` (axis
+names and sizes, no devices: the production meshes, the rules tests) or
+a ``torch.distributed.device_mesh.DeviceMesh`` whose dims are named.
+
+JAX's rules branch on rank: ``spec_for_param`` strips the leading rep dim
+of a ``segments`` leaf and tells MoE tensors by rank 3, and
+``cache_spec`` branches on ``len(shape) >= 4 / >= 5``.  They take JAX's
+layout (stacked reps).  The port keeps one dict a layer with no rep dim,
+so :func:`port_param_specs` and :func:`port_cache_specs` apply the rules
+to the JAX path and stacked shape of each per-layer leaf and drop the rep
+entry (always None): a per-layer shape never meets a rank-based branch.
+
+The ambient mesh (:func:`set_mesh` / :func:`get_mesh`) is per process,
+the port's counterpart of ``repro/core/_compat.py``'s ``set_mesh`` /
+``get_abstract_mesh``.  :func:`constrain` redistributes a DTensor to the
+placements its rule gives on an ambient ``DeviceMesh``; with no mesh, an
+abstract one, a world of one or a plain tensor it returns its input.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import math
+import os
+from typing import Any, Sequence
+
+# ---------------------------------------------------------------------------
+# specs and meshes
+# ---------------------------------------------------------------------------
+
+
+def _norm_entry(e):
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        return e[0] if len(e) == 1 else e
+    return e
+
+
+class Spec(tuple):
+    """A partition spec: one entry a dim (an axis name, a tuple of names
+    or None).  Equality is JAX ``PartitionSpec``'s: entry by entry, a
+    one-name tuple equal to the name, trailing Nones significant."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_norm_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes, no devices (JAX's ``AbstractMesh``)."""
+
+    axis_shape: tuple
+    axis_names: tuple
+
+    def __post_init__(self):
+        if len(self.axis_shape) != len(self.axis_names):
+            raise ValueError(f"{self.axis_shape} against {self.axis_names}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_shape)
+
+
+def axis_names(mesh) -> tuple:
+    """The mesh's axis names, for an abstract or a device mesh."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.axis_names
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def mesh_shape(mesh) -> dict:
+    """{axis name: size} for an abstract or a device mesh."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    return dict(zip(axis_names(mesh), tuple(mesh.shape)))
+
+
+def logical_map(mesh) -> dict[str, tuple[str, ...]]:
+    names = axis_names(mesh)
+    return {
+        "dp": tuple(a for a in ("pod", "data") if a in names),
+        "data": tuple(a for a in ("data",) if a in names),
+        "pod": tuple(a for a in ("pod",) if a in names),
+        "tp": tuple(a for a in ("model",) if a in names),
+    }
+
+
+def _axis_size(mesh, axes: tuple[str, ...]) -> int:
+    sh = mesh_shape(mesh)
+    return math.prod(sh[a] for a in axes)
+
+
+def assign_spec(shape: Sequence[int], prefs: Sequence[Sequence[str]],
+                mesh) -> Spec:
+    """prefs[i] = ordered logical-axis candidates for dim i."""
+    lm = logical_map(mesh)
+    used: set[str] = set()
+    out: list[Any] = [None] * len(shape)
+    for i, cands in enumerate(prefs):
+        for logical in cands:
+            axes = lm.get(logical, ())
+            if not axes or any(a in used for a in axes):
+                continue
+            if shape[i] % _axis_size(mesh, axes) != 0:
+                continue
+            out[i] = axes if len(axes) > 1 else axes[0]
+            used.update(axes)
+            break
+    return Spec(*out)
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple:
+    """One device's block of a ``shape`` laid out by ``spec`` (the rules
+    assign only dims their axes divide)."""
+    sh = mesh_shape(mesh)
+    out = []
+    for i, n in enumerate(shape):
+        e = spec[i] if i < len(spec) else None
+        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        out.append(n // math.prod(sh[a] for a in axes))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# parameter rules (matched on leaf name; see models/* for layouts)
+# ---------------------------------------------------------------------------
+
+_PARAM_RULES: dict[str, list[list[str]]] = {
+    # name: prefs per dim (excluding any leading scan-rep dim)
+    "tok":      [["tp"], ["dp"]],                    # (V, d)
+    "lm_head":  [["dp"], ["tp"]],                    # (d, V)
+    "wq":       [["dp"], ["tp"], []],                # (d, H, hd)
+    "wk":       [["dp"], ["tp"], []],
+    "wv":       [["dp"], ["tp"], []],
+    "attn_wo":  [["tp"], [], ["dp"]],                # (H, hd, d)
+    "bq":       [["tp"], []],
+    "bk":       [["tp"], []],
+    "bv":       [["tp"], []],
+    "wi_gate":  [["dp"], ["tp"]],                    # (d, ff)
+    "wi_up":    [["dp"], ["tp"]],
+    "mlp_wo":   [["tp"], ["dp"]],                    # (ff, d)
+    "router":   [["dp"], []],                        # (d, E)
+    "moe_wi":   [["tp"], ["dp"], ["tp"]],            # (E, d, ff) E->tp else ff
+    "moe_wo":   [["tp"], ["tp"], ["dp"]],            # (E, ff, d)
+    "in_proj":  [["dp"], ["tp"]],                    # (d, 2di+2N+H)
+    "out_proj": [["tp"], ["dp"]],                    # (di, d)
+    "conv_w":   [[], ["tp"]],                        # (k, conv_dim)
+    "conv_b":   [["tp"]],
+}
+
+
+def _key(entry):
+    """A path entry's key: a (kind, key) pair of ``models.tree`` or a
+    bare key."""
+    if isinstance(entry, tuple) and len(entry) == 2 and entry[0] in (
+            "key", "idx", "attr"):
+        return entry[1]
+    return entry
+
+
+def _leaf_rule(path) -> tuple[str, bool]:
+    """(rule key, has_leading_rep_dim) from a JAX-layout tree path.
+
+    MoE expert tensors share leaf names with dense MLPs (wi_gate / wi_up /
+    wo); they are told apart by rank in :func:`spec_for_param` (expert
+    tensors are 3-D after stripping the scan-rep dim)."""
+    keys = [_key(k) for k in path]
+    name = keys[-1]
+    in_segment = "segments" in keys or "enc_segments" in keys
+    parent = keys[-2] if len(keys) >= 2 else None
+    if name == "wo":
+        name = "attn_wo" if parent in ("attn", "xattn") else "mlp_wo"
+    return name, in_segment
+
+
+def spec_for_param(path, shape, mesh) -> Spec:
+    """The spec of a parameter at JAX-layout ``path`` with JAX-layout
+    ``shape`` (a ``segments`` leaf carries its leading rep dim)."""
+    name, in_segment = _leaf_rule(path)
+    dims = list(shape)
+    lead = 0
+    if in_segment:
+        lead = 1
+        dims = dims[1:]
+    # disambiguate dense-vs-moe expert tensors by rank
+    if name in ("wi_gate", "wi_up") and len(dims) == 3:
+        name = "moe_wi"
+    if name == "mlp_wo" and len(dims) == 3:
+        name = "moe_wo"
+    prefs = _PARAM_RULES.get(name)
+    if prefs is None or len(prefs) != len(dims):
+        # norms, scalars, biases, A_log, gates, ... -> replicated
+        return Spec(*([None] * (lead + len(dims))))
+    spec = assign_spec(dims, prefs, mesh)
+    return Spec(*([None] * lead + list(spec)))
+
+
+def param_shardings(params_shape, mesh):
+    """Spec tree for a JAX-layout parameter tree (anything with
+    ``.shape`` at the leaves; ``models.convert.to_jax_layout`` gives one
+    from the port's)."""
+    from repro_torch.models.tree import leaves_with_path, unflatten
+    return unflatten(params_shape, [
+        spec_for_param(path, leaf.shape, mesh)
+        for path, leaf in leaves_with_path(params_shape)])
+
+
+def _jax_param_path(path, cfg):
+    """(JAX-layout path, stacked?) of a port parameter path: a layer
+    ``("layers", j, ...)`` is position ``i`` of segment ``si`` in JAX's
+    ``("segments", si, i, ...)``, stacked over the segment's reps."""
+    keys = [_key(k) for k in path]
+    stacks = {"layers": ("segments", cfg.segments),
+              "enc_layers": ("enc_segments", cfg.encoder_segments)}
+    if keys and keys[0] in stacks:
+        jname, segments = stacks[keys[0]]
+        j, base = keys[1], 0
+        for si, (pat, rep) in enumerate(segments):
+            if j < base + rep * len(pat):
+                i = (j - base) % len(pat)
+                return (jname, si, i, *keys[2:]), rep
+            base += rep * len(pat)
+        raise ValueError(f"layer {j} is past the config's segments")
+    return tuple(keys), 0
+
+
+def port_param_specs(params, cfg, mesh):
+    """Spec tree of the port's parameters (or any tree of their
+    structure, the moments too): JAX's spec of each leaf in JAX's layout,
+    its rep entry dropped for a per-layer leaf."""
+    from repro_torch.models.tree import leaves_with_path, unflatten
+    out = []
+    for path, leaf in leaves_with_path(params):
+        jpath, rep = _jax_param_path(path, cfg)
+        if rep:
+            out.append(Spec(*spec_for_param(
+                jpath, (rep,) + tuple(leaf.shape), mesh)[1:]))
+        else:
+            out.append(spec_for_param(jpath, tuple(leaf.shape), mesh))
+    return unflatten(params, out)
+
+
+# ---------------------------------------------------------------------------
+# activations / batch / cache
+# ---------------------------------------------------------------------------
+
+def batch_spec(shape, mesh) -> Spec:
+    """Token-like (B, S[, d]) arrays: batch over dp."""
+    prefs = [["dp"]] + [[] for _ in shape[1:]]
+    return assign_spec(shape, prefs, mesh)
+
+
+def _tree_specs(tree, fn):
+    from repro_torch.models.tree import leaves, unflatten
+    return unflatten(tree, [fn(leaf.shape) for leaf in leaves(tree)])
+
+
+def batch_shardings(batch_shape, mesh):
+    return _tree_specs(batch_shape, lambda s: batch_spec(s, mesh))
+
+
+def cache_spec(shape, mesh) -> Spec:
+    """JAX-layout KV cache (rep, B, S, KV, hd) / ssm state (rep, B, H, P,
+    N) / conv state (rep, B, k-1, conv).  Batch over dp; if batch is
+    unshardable (long_500k B=1) the sequence/state dim takes dp; kv-heads
+    take tp.  When the KV-head count is indivisible by the model axis the
+    *sequence* dim takes tp instead (split-K cache partitioning), unless
+    ``REPRO_NO_CACHE_SEQ_FALLBACK`` is set, as JAX reads it."""
+    if len(shape) >= 4:
+        prefs = [[], ["dp"], ["dp"], ["tp"], []][: len(shape)]
+        while len(prefs) < len(shape):
+            prefs.append([])
+        if (len(shape) >= 5
+                and not os.environ.get("REPRO_NO_CACHE_SEQ_FALLBACK")):
+            lm = logical_map(mesh)
+            tp = lm.get("tp", ())
+            kv_ok = tp and shape[3] % _axis_size(mesh, tp) == 0
+            if not kv_ok:
+                prefs[2] = ["dp", "tp"]     # sequence takes the model axis
+        return assign_spec(shape, prefs, mesh)
+    return assign_spec(shape, [[]] + [["dp"]] * (len(shape) - 1), mesh)
+
+
+def cache_shardings(cache_shape, mesh):
+    """Spec tree for a JAX-layout cache tree (stacked reps)."""
+    return _tree_specs(cache_shape, lambda s: cache_spec(s, mesh))
+
+
+def port_cache_specs(caches, mesh):
+    """Spec tree of the port's caches (one entry a layer, no rep dim):
+    JAX's spec of the stacked shape with the rep entry dropped."""
+    return _tree_specs(caches, lambda s: Spec(*cache_spec(
+        (1,) + tuple(s), mesh)[1:]))
+
+
+def replicated(mesh) -> Spec:
+    return Spec()
+
+
+# ---------------------------------------------------------------------------
+# in-model activation constraints
+# ---------------------------------------------------------------------------
+
+_ACT_RULES: dict[str, list[list[str]]] = {
+    # (B, S, d) hidden states: batch over dp
+    "hidden": [["dp", "data", "pod"], [], []],
+    # (B, S, H, hd) projected heads: batch over dp, heads over tp
+    "heads": [["dp", "data", "pod"], [], ["tp"], []],
+    # (B, S, ff) FFN intermediate: batch over dp, ff over tp
+    "ffh": [["dp", "data", "pod"], [], ["tp"]],
+    # (B, c, V) logits: batch over dp, vocab over tp
+    "logits": [["dp", "data", "pod"], [], ["tp"]],
+    # (E, C, d) / (E, C, ff) MoE expert buffers: experts over tp
+    "experts": [["tp"], [], []],
+    # (G, E, C, d|ff) grouped MoE dispatch buffers: groups over dp,
+    # experts over tp
+    "moe_buffer": [["dp", "data", "pod"], ["tp"], [], []],
+    # (G, Tg, d) grouped token buffers
+    "tokens_grouped": [["dp", "data", "pod"], [], []],
+    # (B, KV, G, Sq, Tk) attention scores: kv-heads over tp, else the key
+    # axis (context-parallel attention)
+    "scores": [["dp", "data", "pod"], ["tp"], [], [], ["tp"]],
+    # (B, H, Sq, Tk) merged-head scores (expanded-KV path): heads over tp
+    "scores_h": [["dp", "data", "pod"], ["tp"], [], []],
+    # (T, d) flat token buffers (MoE dispatch): tokens over dp
+    "tokens_flat": [["dp", "data", "pod"], []],
+}
+
+
+# ---------------------------------------------------------------------------
+# the ambient mesh
+# ---------------------------------------------------------------------------
+
+_MESH_STACK: list = []
+_REGISTERED: list = []
+
+
+def _mm_strategies(ndim: int) -> list:
+    """``mm``'s single-axis strategies (``bmm``'s with the batch dim in
+    front): (output placements, input placements) pairs."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    b = ndim - 2                  # leading batch dims: 0 for mm, 1 for bmm
+    out = [([Replicate()], [Replicate(), Replicate(), None]),
+           ([Shard(b)], [Shard(b), Replicate(), None]),
+           ([Shard(b + 1)], [Replicate(), Shard(b + 1), None]),
+           ([Partial()], [Shard(b + 1), Shard(b), None])]
+    if b:
+        out.append(([Shard(0)], [Shard(0), Shard(0), None]))
+    return out
+
+
+def register_strategies() -> None:
+    """Give DTensor a sharding strategy for the ops on the models' path
+    that have none: ``aten.mm.dtype`` / ``aten.bmm.dtype`` (the bf16
+    product with an f32 result, ``models.common._Bf16DotF32``), the
+    strategies of ``mm`` / ``bmm``.  Once a process."""
+    if _REGISTERED:
+        return
+    import torch
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+    for op, ndim in ((aten.mm.dtype, 2), (aten.bmm.dtype, 3)):
+        register_sharding(op)(
+            lambda a, b, out_dtype, _n=ndim: _mm_strategies(_n))
+    _REGISTERED.append(True)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Install ``mesh`` (abstract or device) as this process's ambient
+    mesh for the ``with`` block."""
+    _MESH_STACK.append(mesh)
+    try:
+        if device_mesh() is None:
+            yield mesh
+        else:
+            # plain tensors the models make (positions, masks, constants)
+            # meet DTensors as replicated ones, as JAX's unsharded arrays
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+            register_strategies()
+            with implicit_replication():
+                yield mesh
+    finally:
+        _MESH_STACK.pop()
+
+
+def get_mesh():
+    """The ambient mesh, or None outside any :func:`set_mesh` block."""
+    return _MESH_STACK[-1] if _MESH_STACK else None
+
 
 def dp_size() -> int:
-    """Size of the data-parallel axes: 1 on one device."""
-    return 1
+    """Size of the ambient mesh's data-parallel axes (1 off-mesh)."""
+    m = get_mesh()
+    if m is None or not axis_names(m):
+        return 1
+    sh = mesh_shape(m)
+    return math.prod(sh[a] for a in ("pod", "data") if a in sh)
 
 
 def tp_size() -> int:
-    """Size of the model axis: 1 on one device."""
-    return 1
+    """Size of the ambient mesh's model axis (1 off-mesh)."""
+    m = get_mesh()
+    if m is None or "model" not in axis_names(m):
+        return 1
+    return mesh_shape(m)["model"]
+
+
+def device_mesh():
+    """The ambient ``DeviceMesh`` of more than one device, else None."""
+    m = get_mesh()
+    if m is None or isinstance(m, AbstractMesh) or m.size() <= 1:
+        return None
+    return m
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: a tensor dim named by
+    mesh axis ``a`` is ``Shard(dim)`` on ``a``'s mesh dim (a dim named by
+    ``("pod", "data")`` on both, pod first); every other mesh dim
+    ``Replicate()``, and so is an axis of one device (the same layout;
+    DTensor's view rules refuse a size-1 dim sharded over a size-1
+    axis)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names, sizes = axis_names(mesh), mesh_shape(mesh)
+    out = [Replicate()] * len(names)
+    for dim, e in enumerate(spec):
+        for a in (() if e is None else e if isinstance(e, tuple) else (e,)):
+            if sizes[a] > 1:
+                out[names.index(a)] = Shard(dim)
+    return tuple(out)
+
+
+def layout(mesh, *, data, model) -> tuple:
+    """Placements over ``mesh``: ``data`` on the dp axes ("pod", "data"),
+    ``model`` on "model", ``Replicate()`` on an axis of one device (as in
+    :func:`placements`)."""
+    from torch.distributed.tensor import Replicate
+    sizes = mesh_shape(mesh)
+    return tuple(Replicate() if sizes[a] == 1
+                 else data if a in ("pod", "data") else model
+                 for a in axis_names(mesh))
+
+
+def local_block(t, mesh, want, grad=None):
+    """This rank's block of ``t`` laid out as ``want`` (a plain tensor is
+    taken as replicated), its gradient declared ``grad`` (default: the
+    layout's): the entry to code that runs on each rank's block, as a
+    ``shard_map`` body does."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if tuple(t.placements) != tuple(want):
+        t = t.redistribute(mesh, want)
+    return t.to_local(grad_placements=grad)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def constrain(x, rule: str):
-    """JAX's sharding constraint for activations of kind ``rule``; the
-    identity on one device."""
-    return x
+    """JAX's ``with_sharding_constraint`` against the ambient mesh: a
+    DTensor is redistributed to the placements of its rule's spec.  The
+    identity with no device mesh, on a world of one, or on a plain tensor
+    (keeps model code mesh-agnostic: one device runs as it did)."""
+    mesh = device_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    prefs = _ACT_RULES[rule]
+    if len(prefs) != x.ndim:
+        return x
+    want = placements(assign_spec(x.shape, prefs, mesh), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.tree import leaves, tree_map, unflatten
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.train import compression as comp
 from repro_torch.train.optimizer import OptConfig, adamw_update
 from repro_torch.train.state import TrainState
@@ -32,8 +33,42 @@ def value_and_grad(params, batch, cfg):
         flat = leaves(ps)
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
     gs = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)]
+    if any(is_dtensor(g) for g in gs):
+        gs = _as_params(gs, flat)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             unflatten(params, gs))
+
+
+def _as_params(grads, params) -> list:
+    """DTensor gradients laid out as their parameters: their partial sums
+    over the data shards and the model axis reduced.  Gradients that are
+    partial sums or replicas on every mesh axis, of one dtype and one
+    target layout, are reduced as one flat buffer (one all-reduce a
+    bucket, as DDP buckets them; each element's sum is the same); the
+    rest one by one."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    out = list(grads)
+    buckets: dict = {}
+    for i, (g, p) in enumerate(zip(grads, params)):
+        if tuple(g.placements) == tuple(p.placements):
+            continue
+        if any(isinstance(pl, Shard) for pl in (*g.placements,
+                                                *p.placements)):
+            out[i] = g.redistribute(p.device_mesh, p.placements)
+            continue
+        buckets.setdefault((tuple(g.placements), tuple(p.placements),
+                            g.dtype), []).append(i)
+    for (have, want, _), idx in buckets.items():
+        mesh = grads[idx[0]].device_mesh
+        flat = torch.cat([grads[i].to_local().reshape(-1) for i in idx])
+        flat = DTensor.from_local(flat, mesh, have, run_check=False
+                                  ).redistribute(mesh, want).to_local()
+        for i, part in zip(idx, torch.split(
+                flat, [grads[i].numel() for i in idx])):
+            out[i] = DTensor.from_local(part.view(grads[i].shape), mesh,
+                                        want, run_check=False)
+    return out
 
 
 def make_train_step(cfg, opt_cfg: OptConfig, *, grad_accum: int = 1):

@@ -4,7 +4,8 @@ package's on-disk format, on the CPU.
 - JAX's ``test_checkpoint.py`` cases on the port: roundtrip (bf16
   included), latest step and retention, the async manager, ``tmp.``
   directories never visible, a shape mismatch raises;
-  ``test_restore_with_shardings`` is the mesh side (A.13c) and refuses;
+  ``test_restore_with_shardings`` needs a device mesh (it is
+  ``tests/test_torch_mesh_driver.py``'s) and raises without one;
 - a JAX ``save_checkpoint`` of a TrainState after 2 steps restores into
   the port bitwise, leaf by leaf, and the port's next step is within 1e-3
   relative of JAX's (the step bound of ``test_torch_train.py``);
@@ -108,8 +109,11 @@ def test_shape_mismatch_raises(tmp_path):
 
 
 def test_restore_with_shardings_is_the_mesh_side(tmp_path):
+    """``shardings=`` lays leaves out on a device mesh (the mesh side,
+    tests/test_torch_mesh_driver.py); with none it raises, and never
+    returns plain tensors instead."""
     save_checkpoint(str(tmp_path), _state(), 3)
-    with pytest.raises(NotImplementedError, match="A.13c"):
+    with pytest.raises(ValueError, match="device mesh"):
         restore_checkpoint(str(tmp_path), _shape(), shardings=_shape())
 
 

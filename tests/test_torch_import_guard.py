@@ -30,6 +30,10 @@ LM_MODULES = (
        "train", "train.optimizer", "train.state", "train.step",
        "train.compression", "checkpoint", "checkpoint.manager",
        "launch.train", "examples.train_lm"))
+#: the mesh side: the sharding rules, meshes, cell specs and the memory
+#: model
+MESH_MODULES = ("sharding.rules", "launch.mesh", "launch.specs",
+                "launch.memory_model")
 
 
 def _env():
@@ -55,11 +59,11 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split("\n")
-    assert int(out[0]) >= 116                  # every module was imported
+    assert int(out[0]) >= 119                  # every module was imported
     assert out[1] == "[]"
     for name in PAPER_MODULES:
         assert f"'repro_torch.{name}'" in out[2], name
-    for name in LM_MODULES:
+    for name in LM_MODULES + MESH_MODULES:
         assert f"'repro_torch.{name}'" in out[3], name
 
 
@@ -76,7 +80,7 @@ def _imported_roots(path: Path):
 def test_no_source_file_imports_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
-    for name in PAPER_MODULES + LM_MODULES:
+    for name in PAPER_MODULES + LM_MODULES + MESH_MODULES:
         path = PKG / name.replace(".", "/")
         assert path.with_suffix(".py") in files \
             or path / "__init__.py" in files, name

@@ -14,8 +14,10 @@ over gloo.
 - ``dijkstra_sharded`` (three MINLOC variants) and the sharded
   ``multisource`` against JAX's own at P = 1 and P = 4 (JAX in one child
   process with four forced host devices, writing an ``.npz``); at P = 2
-  against JAX's P = 1 answers.  ``bellman_sharded`` against JAX's at
-  P = 1 and JAX ``bellman`` at P = 2 and 4 (JAX's raises at P = 4).
+  against JAX's P = 1 answers.  ``bellman_sharded`` against JAX's own
+  at P = 1, 2 and 4 (P > 1 on an Auto-axes mesh the JAX child builds:
+  on the default mesh JAX's raises at P = 4, queue C) and against JAX's
+  single-device ``bellman``.
 - The row-base ``ell_relax`` and explicit-label ``frontier_relax`` plain
   paths against a direct numpy min.
 - ``sssp_run --procs 2`` and ``run_bench --smoke --devices 2`` on the CPU.
@@ -184,6 +186,17 @@ for P in (1, 4):
 mesh = make_mesh((1,), ("data",), devices=jax.devices()[:1])
 d, p, s = sssp_bellman_sharded(jnp.asarray(g.adj), jnp.int32({src}), mesh)
 out["bs_1"], out["bsp_1"], out["bss_1"] = np.asarray(d), np.asarray(p), s
+# P > 1 on a mesh whose axis is Auto (jax.make_mesh's default here is
+# Explicit, which JAX's bellman_sharded cannot run on: ROADMAP queue C)
+from jax.sharding import AxisType
+for P in (2, 4):
+    mesh = jax.make_mesh((P,), ("data",), axis_types=(AxisType.Auto,),
+                         devices=jax.devices()[:P])
+    d, p, s = sssp_bellman_sharded(jnp.asarray(g.padded(P).adj),
+                                   jnp.int32({src}), mesh)
+    out[f"bs_{{P}}"] = np.asarray(d)[:g.n]
+    out[f"bsp_{{P}}"] = np.asarray(p)[:g.n]
+    out[f"bss_{{P}}"] = s
 np.savez(sys.argv[1], **out)
 """
 
@@ -392,17 +405,17 @@ def test_dijkstra_sharded_vs_jax_dijkstra_sharded(runs, jax_sharded, P,
 
 @pytest.mark.parametrize("P", PROCS)
 def test_bellman_sharded_vs_jax(runs, jax_sharded, jax_refs, P):
-    """Against JAX's bellman_sharded at P = 1 and its single-device
-    bellman elsewhere (JAX's raises at P = 4, queue C)."""
+    """Against JAX's own bellman_sharded at the same P (P > 1 on an
+    Auto-axes mesh the JAX child builds, queue C), and against its
+    single-device bellman."""
     d, p, s, _, _ = _on_every_rank(runs[P], ("bellman_sharded",))
-    if P == 1:
-        want = (jax_sharded["bs_1"], jax_sharded["bsp_1"],
-                int(jax_sharded["bss_1"]))
-    else:
-        ref = jax_refs["bellman"]
-        want = (np.asarray(ref.dist), np.asarray(ref.pred), ref.sweeps)
+    want = (jax_sharded[f"bs_{P}"], jax_sharded[f"bsp_{P}"],
+            int(jax_sharded[f"bss_{P}"]))
     assert d.tobytes() == want[0].tobytes()
     assert np.array_equal(p, want[1]) and s == want[2]
+    ref = jax_refs["bellman"]
+    assert d.tobytes() == np.asarray(ref.dist).tobytes()
+    assert np.array_equal(p, np.asarray(ref.pred)) and s == ref.sweeps
 
 
 @pytest.mark.parametrize("P", PROCS)

@@ -599,12 +599,17 @@ def test_sigterm_checkpoints_and_exits_143(tmp_path):
 
 
 def test_train_driver_refuses_a_mesh_and_parses_ddp_compress():
-    with pytest.raises(NotImplementedError, match="A.13c"):
-        ptrain.main(["--arch", "mamba2-130m", "--smoke", "--data-axis", "2",
-                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.13c"):
+    """A mesh it cannot place is refused (CUDA ranks without a GPU each
+    and without ``--shared-card``; ``--shared-card`` on the CPU): it never
+    runs on fewer ranks or on the CPU instead.  Meshes it can place are
+    tests/test_torch_mesh_driver.py's."""
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="GPUs"):
+            ptrain.main(["--arch", "mamba2-130m", "--smoke", "--data-axis",
+                         "2", "--device", "cuda"])
+    with pytest.raises(ValueError, match="shared-card"):
         ptrain.main(["--arch", "mamba2-130m", "--smoke", "--model-axis", "2",
-                     "--device", "cpu"])
+                     "--shared-card", "--device", "cpu"])
     losses = ptrain.main(["--arch", "mamba2-130m", "--smoke", "--steps", "2",
                           "--batch", "2", "--seq", "16", "--ddp-compress",
                           "--data-axis", "1", "--device", "cpu"])
