@@ -143,13 +143,23 @@ the kernels' operation bounds use them) and then:
    as one rank's bf16 ones are (within twice, per leaf by norm); one
    qwen2-moe MoE layer at full width, expert-parallel on the (1, 2) mesh
    against the grouped path on one rank (f32: JAX's 2e-3 / 1e-4; bf16:
-   two roundings); one ``{"lm_mesh": ...}`` line a part.
+   two roundings); one ``{"lm_mesh": ...}`` line a part;
+15. the dry run and the roofline (:func:`dryrun_phase`), in its own
+   launch window (no kernel): two production cells traced on the pod
+   mesh (256 fake ranks) by ``python -m repro_torch.launch.dryrun`` under
+   the card's torch; the step counter over real CUDA tensors on
+   gemma2-2b at full width (prefill 1 × 8192, a batch-4 decode step), its
+   counts equal to those over the dry run's fake meta tensors and
+   its peak within 10% of the allocator's, each step's roofline bound
+   beside its CUDA-event time; the collective latency constant; one
+   ``{"dryrun": ...}``, ``{"roofline_card": ...}`` and
+   ``{"collective_latency": ...}`` line.
 
 It prints the card, the measured rates, one JSON line per CSR-kernel
 shape, per engine run, per dynamic batch size, per serve trace, per obs
 pass, per driver run and per graph's (and the target query's and the
 dynamic phase's) kernel launches, one ``{"kernels": ...}`` line
-(``launches`` summed over the nine counted windows, ``launches_by_path``
+(``launches`` summed over the counted windows, ``launches_by_path``
 split), and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line; so does a machine
 without a CUDA GPU.
@@ -2877,6 +2887,176 @@ def lm_mesh_phase(device, lines: list, card: str) -> None:
         wall_s=time.perf_counter() - t0, card=card)})
 
 
+#: the dry-run phase: production cells traced by ``python -m
+#: repro_torch.launch.dryrun`` in child processes on the card's torch (fake
+#: tensors: nothing runs on the card); the LM cell one of the quick ones
+#: to trace that 2.11's DTensor runs
+DRYRUN_CELLS = (("gemma3-1b", "decode_32k"), ("sssp", "bellman_512k"))
+#: seconds the dry-run children may take
+DRYRUN_TIMEOUT = 120
+#: the counter on real tensors at world 1: gemma2-2b at full width in bf16,
+#: the 1 x 8192 prefill and a batch-4 decode step over 8192-slot caches
+ROOFLINE_ARCH = "gemma2-2b"
+ROOFLINE_PREFILL = (1, 8192)
+ROOFLINE_DECODE = (4, 8192)
+#: the counter's predicted peak (its output + temporaries) against the
+#: measured rise of max_memory_allocated(), relative
+ROOFLINE_MEM_RTOL = 0.10
+ROOFLINE_REPS = 3
+
+
+def _counts(ws) -> dict:
+    d = ws.to_dict()
+    return {k: d[k] for k in ("dot_flops", "vector_flops", "traffic_bytes",
+                              "collective_bytes")}
+
+
+def dryrun_phase(device, lines: list, card: str) -> None:
+    """The dry run and the roofline (``repro_torch.launch.dryrun``,
+    ``repro_torch.launch.cost_analysis``), in its own launch window (no
+    kernel: the counter runs the models' plain ops):
+
+    a. :data:`DRYRUN_CELLS` on the pod mesh (256 fake ranks) through the
+       dry run's CLI, one child process a cell: each must exit 0; one
+       ``{"dryrun": ...}`` line.  The children trace on the host's cores
+       while (b) and (c) use the card;
+    b. the counter over real CUDA tensors at world 1 on
+       :data:`ROOFLINE_ARCH` (:func:`roofline_card`);
+    c. the latency constant: the median of a one-float all-reduce on a
+       world-1 NCCL group, one ``{"collective_latency": ...}`` line.
+    """
+    import torch
+
+    from repro_torch.launch import cost_analysis as CA
+
+    src = str(Path(__file__).resolve().parent / "src")
+    # one thread each, at the lowest priority: the host-bound decode step
+    # and the latency measured beside them keep their cores
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    kw = dict(env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+              text=True, preexec_fn=lambda: os.nice(19))
+    out_dir = tempfile.mkdtemp(prefix="dryrun-")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", sh, "--mesh", "pod", "--out", out_dir], **kw)
+        for a, sh in DRYRUN_CELLS]
+    try:
+        lines.append({"roofline_card": roofline_card(device, card)})
+        with tempfile.TemporaryDirectory(prefix="latency-") as tmp:
+            lat = CA.measure_collective_latency(device, store_dir=tmp)
+        lines.append({"collective_latency": dict(
+            lat, what="one-float all_reduce, world-1 NCCL group, each "
+                      "call synchronized", card=card)})
+        res = [p.communicate(timeout=DRYRUN_TIMEOUT) for p in procs]
+        wall = time.perf_counter() - t0
+        for p, (_, err) in zip(procs, res):
+            check(p.returncode == 0,
+                  f"dryrun child {p.args[-7:]} exited {p.returncode}: "
+                  f"{err[-3000:]}")
+        recs = []
+        for a, sh in DRYRUN_CELLS:
+            with open(os.path.join(out_dir, f"{a}__{sh}__pod.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cells = []
+    for rec in recs:
+        rf = rec["roofline"]
+        cells.append(dict(
+            arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+            chips=rec["chips"], dominant=rf["dominant"],
+            bound_time_s=rf["bound_time_s"], mfu_fraction=rec["mfu_fraction"],
+            gb_per_device=rec["memory_analysis"]["live_bytes_per_device"]
+            / 1e9, trace_s=rec["trace_s"], traced=rec["traced"]))
+    lines.append({"dryrun": dict(cells=cells, children_wall_s=wall,
+                                 torch=torch.__version__, card=card)})
+
+
+def roofline_card(device, card: str) -> dict:
+    """The counter over real CUDA tensors at world 1 on
+    :data:`ROOFLINE_ARCH` at full width (the prefill and the decode step,
+    each after a warm-up call): its counts equal to those over fake meta
+    tensors of the same arguments (the dry run's), exactly; its predicted
+    peak (output + temporaries) within :data:`ROOFLINE_MEM_RTOL` of the
+    measured rise of ``max_memory_allocated()``; the roofline's bound and
+    dominant term beside the step's CUDA-event ms (median of
+    :data:`ROOFLINE_REPS`)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.models import transformer as T
+    from repro_torch.models.tree import tree_map
+
+    cfg = get_config(ROOFLINE_ARCH)
+    params = T.init_params(cfg, torch.Generator(device).manual_seed(0),
+                           device)
+    gen = torch.Generator(device).manual_seed(1)
+    B, S = ROOFLINE_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=device)
+    Bd, Sd = ROOFLINE_DECODE
+    caches = T.init_cache(cfg, Bd, Sd, torch.bfloat16, device)
+    tok = torch.randint(0, cfg.vocab_size, (Bd, 1), generator=gen,
+                        device=device)
+    pos = torch.full((Bd,), Sd // 2, dtype=torch.int32, device=device)
+    steps = {
+        "prefill": (lambda p, t: T.prefill(p, t, cfg, max_len=S),
+                    (params, toks), [B, S]),
+        "decode": (lambda p, t, q, c: T.decode_step(p, t, q, c, cfg),
+                   (params, tok, pos, caches), [Bd, Sd])}
+    out = {}
+    for name, (fn, args, shape) in steps.items():
+        fn(*args)                                       # warm-up
+        torch.cuda.synchronize(device)
+        ms = statistics.median(event_call(lambda: fn(*args))[1]
+                               for _ in range(ROOFLINE_REPS))
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        ws, mem, res = CA.count_step(fn, *args)
+        torch.cuda.synchronize(device)
+        rise = torch.cuda.max_memory_allocated(device) - base
+        del res
+        with FakeTensorMode():
+            fws, fmem, _ = CA.count_step(fn, *tree_map(
+                lambda t: torch.empty_strided(t.shape, t.stride(),
+                                              dtype=t.dtype, device="meta"),
+                args))
+        real, fake = _counts(ws), _counts(fws)
+        check(real == fake, f"roofline_card {name}: counts over real CUDA "
+                            f"tensors {real} != over fake meta ones {fake}")
+        pred = mem["live_bytes_per_device"] - mem["argument_size_in_bytes"]
+        rel = abs(pred - rise) / max(rise, 1)
+        check(rel <= ROOFLINE_MEM_RTOL,
+              f"roofline_card {name}: predicted peak {pred} B vs measured "
+              f"rise {rise} B ({rel:.3f} > {ROOFLINE_MEM_RTOL})")
+        tokens = shape[0] * (shape[1] if name == "prefill" else 1)
+        rf = CA.roofline(ws, chips=1,
+                         model_flops=CA.analytic_decode_flops(cfg, tokens))
+        out[name] = dict(
+            shape=shape, **real, fake_meta_equal=True,
+            predicted_peak_rise_bytes=pred, measured_peak_rise_bytes=rise,
+            mem_rel_err=rel, fake_live_bytes=fmem["live_bytes_per_device"],
+            bound_time_s=rf.bound_time_s, dominant=rf.dominant,
+            terms_s=dict(compute=rf.compute_s, simt=rf.simt_s,
+                         memory=rf.memory_s),
+            event_ms=ms, roofline_share=rf.bound_time_s * 1e3 / ms,
+            mfu_fraction=CA.mfu_fraction(rf, 1))
+    del params, caches
+    torch.cuda.empty_cache()
+    return dict(arch=ROOFLINE_ARCH, dtype=cfg.param_dtype, steps=out,
+                constants=dict(peak_flops=CA.PEAK_FLOPS,
+                               simt_ops=CA.SIMT_OPS, hbm_bw=CA.HBM_BW),
+                prediction="data-sheet peaks, H100 SXM at 700 W", card=card)
+
+
 def serial_check(device) -> dict:
     """The paper's Alg. 1 on the device against bellman_csr, bitwise."""
     from repro_torch.core.csr import sparse_csr_graph
@@ -3048,7 +3228,8 @@ def main() -> int:
                     device, wrappers, lines)),
                 ("paper", lambda: paper_phase(device, wrappers, lines)),
                 ("lm", lambda: lm_phase(device, lines)),
-                ("lm_mesh", lambda: lm_mesh_phase(device, lines, card))):
+                ("lm_mesh", lambda: lm_mesh_phase(device, lines, card)),
+                ("dryrun", lambda: dryrun_phase(device, lines, card))):
             t0 = time.perf_counter()
             torch.cuda.synchronize()
             for fn in wrappers.values():

@@ -9,8 +9,10 @@ never writes the JAX package's EXPERIMENTS.md.
 
 Each table's heading line names torch, the device and its power limit from
 the record's ``meta`` (a CSV's from its ``<stem>.meta.json``); the rows are
-the JAX package's.  The dry-run and roofline sections read the LM
-substrate's dry-run records and come with ROADMAP A.13.
+the JAX package's.  The dry-run and roofline sections read the dry-run
+records under experiments/dryrun_torch/ (``python -m
+repro_torch.launch.dryrun --all --mesh both``); their first line says
+they are H100 predictions from data-sheet peaks, not card readings.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.make_experiments_md
 """
@@ -20,7 +22,7 @@ import csv
 import json
 import os
 
-from repro_torch.benchmarks import common
+from repro_torch.benchmarks import common, roofline
 
 REPO = str(common.REPO)
 BENCH_JSON = os.path.join(REPO, "BENCH_torch_sssp.json")
@@ -50,8 +52,7 @@ END = "<!-- END GENERATED:{} -->"
 INTRO = ("# EXPERIMENTS — PyTorch / H100 port\n\n"
          "Generated by `python -m repro_torch.benchmarks.make_experiments_md` "
          "from the port's bench records; each table's first line says what "
-         "it ran on.  Do not edit inside the markers.  The dry-run and "
-         "roofline sections come with ROADMAP A.13.\n")
+         "it ran on.  Do not edit inside the markers.\n")
 
 
 def stamp(meta: dict) -> str:
@@ -60,6 +61,36 @@ def stamp(meta: dict) -> str:
             f"{meta.get('device_name', 'an unrecorded device')} "
             f"({meta.get('device', '?')}, power limit "
             f"{meta.get('power_limit') or 'n/a'})")
+
+
+def dryrun_table(recs) -> str:
+    """The dry-run records -> one device's memory and collectives a
+    cell."""
+    rows = [roofline.caption(recs), "",
+            "| arch | shape | mesh | chips | trace_s | GB/dev | fits 80 GB "
+            "| all-gather GB | all-reduce GB | reduce-scatter GB | a2a GB "
+            "| cperm GB |",
+            "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+    for r in recs:
+        m = r["memory_analysis"]
+        w = r["weighted"]["collective_bytes"]
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['chips']} "
+            f"| {r['trace_s']:.1f} | {m['live_bytes_per_device'] / 1e9:.1f} "
+            f"| {'yes' if m['fits'] else 'NO'} "
+            f"| {w['all-gather'] / 1e9:.2f} | {w['all-reduce'] / 1e9:.2f} "
+            f"| {w['reduce-scatter'] / 1e9:.2f} "
+            f"| {w['all-to-all'] / 1e9:.2f} "
+            f"| {w['collective-permute'] / 1e9:.2f} |")
+    return "\n".join(rows)
+
+
+def roofline_table(recs) -> str:
+    """The dry-run records -> every roofline term a cell (seconds a
+    step on one H100), the dominant one, one device's memory, the
+    MODEL_FLOPS ratio and MFU (``benchmarks/roofline.py``'s table)."""
+    return "\n".join([roofline.caption(recs), "", roofline.HEADER]
+                     + [roofline.fmt_row(r) for r in recs])
 
 
 def bench_tables(path: str) -> str:
@@ -335,6 +366,11 @@ def main() -> str:
     path."""
     text = open(MD).read() if os.path.exists(MD) else INTRO
     done = []
+    recs = roofline.load_records()
+    if recs:
+        text = splice(text, "dryrun", dryrun_table(recs))
+        text = splice(text, "roofline", roofline_table(recs))
+        done += ["dryrun", "roofline"]
     for name, path, table in (
             ("sssp-bench", BENCH_JSON, bench_tables),
             ("serve-bench", SERVE_JSON, serve_table),

@@ -7,9 +7,9 @@ of the JAX package's ``benchmarks/run.py``.
 Writes CSVs under experiments/bench_torch/ and prints a summary; exits 1
 if any bench failed.  ``--device`` is where the single-device columns run,
 ``--ranks-device`` where the P-rank (MPI-analogue) columns run: ``cpu``
-puts them on gloo ranks on the host, as the paper's MPI ran.  The JAX
-package's ``roofline`` reads the LM substrate's dry-run records and comes
-with ROADMAP A.13: asking for it raises.
+puts them on gloo ranks on the host, as the paper's MPI ran.
+``roofline`` tabulates the dry-run records (``python -m
+repro_torch.launch.dryrun --all``) and runs nothing.
 """
 from __future__ import annotations
 
@@ -18,8 +18,9 @@ import sys
 import time
 import traceback
 
-from repro_torch.benchmarks import (fig23_size_sweep, table3_density,
-                                    table4_scaling, weak_scaling)
+from repro_torch.benchmarks import (fig23_size_sweep, roofline,
+                                    table3_density, table4_scaling,
+                                    weak_scaling)
 
 BENCHES = {
     "table3": lambda a: table3_density.run(a.quick, device=a.device,
@@ -29,10 +30,8 @@ BENCHES = {
     "fig23": lambda a: fig23_size_sweep.run(a.quick, device=a.device),
     # the experiment the paper couldn't run
     "weak": lambda a: weak_scaling.run(a.quick, ranks_device=a.ranks_device),
+    "roofline": lambda a: roofline.run(a.quick),
 }
-#: the JAX package's benches that wait for another slice of the port
-NOT_PORTED = {"roofline": "A.13 (the LM training substrate and its dry-run "
-                          "records)"}
 
 
 def main(argv=None) -> int:
@@ -47,11 +46,6 @@ def main(argv=None) -> int:
                          "GPU a rank) or 'cpu' (gloo ranks on the host)")
     args = ap.parse_args(argv)
     names = (args.only.split(",") if args.only else list(BENCHES))
-    for name in names:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"bench {name!r} is not ported yet: it comes with ROADMAP "
-                f"{NOT_PORTED[name]}")
     failures = 0
     for name in names:
         print(f"\n=== {name} ===", flush=True)

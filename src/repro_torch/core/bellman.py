@@ -80,24 +80,55 @@ def sssp_bellman_sharded(adj_loc: torch.Tensor, source: int, group, *,
     column block of the padded matrix (``Graph.padded(P)``).  Each sweep is
     a local (n_pad, loc_n) min-plus matvec and one tiled all-gather.
     Returns ``(dist (n_pad,), pred (n_pad,) int32, sweeps)`` on every rank;
-    pred comes from each owner's block at the fixpoint, diagonal masked."""
+    pred comes from each owner's block at the fixpoint, diagonal masked.
+
+    The loop is :func:`sharded_start`, :func:`sharded_sweep` while it
+    changes something, then :func:`sharded_finish`."""
+    n_pad = _check_slab(adj_loc, group)
+    cap = n_pad if max_sweeps is None else max_sweeps
+    dist = sharded_start(adj_loc, source)
+    changed, sweeps = True, 0         # the start differs from "no previous"
+    while sweeps < cap and changed:
+        dist, changed_t = sharded_sweep(dist, adj_loc, group)
+        changed, sweeps = bool(changed_t), sweeps + 1
+    return (*sharded_finish(dist, adj_loc, source, group), sweeps)
+
+
+def _check_slab(adj_loc: torch.Tensor, group) -> int:
     n_pad, loc_n = adj_loc.shape
     if n_pad != loc_n * group.size:
         raise ValueError(f"a ({n_pad}, {loc_n}) slab is not 1/{group.size} "
                          f"of the padded matrix's columns")
-    v_base = group.rank * loc_n
-    cap = n_pad if max_sweeps is None else max_sweeps
-    dist = torch.full((n_pad,), torch.inf, dtype=adj_loc.dtype,
+    return n_pad
+
+
+def sharded_start(adj_loc: torch.Tensor, source: int) -> torch.Tensor:
+    """The replicated start labels of :func:`sssp_bellman_sharded`."""
+    dist = torch.full((adj_loc.shape[0],), torch.inf, dtype=adj_loc.dtype,
                       device=adj_loc.device)
     dist[source] = 0.0
-    changed, sweeps = True, 0         # the start differs from "no previous"
-    while sweeps < cap and changed:
-        mine = dist[v_base:v_base + loc_n]
-        new = group.all_gather(relax_sweep_ref(dist, adj_loc, own=mine))
-        changed = bool((new != dist).any())
-        dist, sweeps = new, sweeps + 1
+    return dist
+
+
+def sharded_sweep(dist: torch.Tensor, adj_loc: torch.Tensor, group):
+    """One sweep of :func:`sssp_bellman_sharded`: this rank's min-plus
+    matvec over its column block and one all-gather.  Returns the new
+    replicated labels and a 0-dim bool tensor, whether any changed (left
+    on the device: the caller reads it)."""
+    loc_n = adj_loc.shape[1]
+    v_base = group.rank * loc_n
+    mine = dist[v_base:v_base + loc_n]
+    new = group.all_gather(relax_sweep_ref(dist, adj_loc, own=mine))
+    return new, (new != dist).any()
+
+
+def sharded_finish(dist: torch.Tensor, adj_loc: torch.Tensor, source: int,
+                   group):
+    """``(dist, pred)`` of :func:`sssp_bellman_sharded` at the fixpoint:
+    each owner's predecessors over its block, all-gathered."""
+    v_base = group.rank * adj_loc.shape[1]
     pred = predecessors_from_dist(dist, adj_loc, source, col_base=v_base)
-    return dist, group.all_gather(pred), sweeps
+    return dist, group.all_gather(pred)
 
 
 def predecessors_from_dist(dist: torch.Tensor, adj: torch.Tensor,

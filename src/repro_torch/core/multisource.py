@@ -53,20 +53,29 @@ def sssp_multisource_sharded(adj_loc: torch.Tensor, sources: torch.Tensor,
                              group, *, max_sweeps: int | None = None):
     """Distributed batched fixpoint: columns sharded over ``group``, D
     replicated.  ``adj_loc`` is this rank's (n_pad, loc_n) column block of
-    the padded matrix.  One all-gather of the (S, loc_n) block a sweep.
-    Returns ``(D (S, n_pad), sweeps)`` on every rank."""
+    the padded matrix.  One all-gather of the (S, loc_n) block a sweep
+    (:func:`sharded_sweep`).  Returns ``(D (S, n_pad), sweeps)`` on every
+    rank."""
     n_pad, loc_n = adj_loc.shape
     if n_pad != loc_n * group.size:
         raise ValueError(f"a ({n_pad}, {loc_n}) slab is not 1/{group.size} "
                          f"of the padded matrix's columns")
-    v_base = group.rank * loc_n
     cap = n_pad if max_sweeps is None else max_sweeps
     D = init_dist(n_pad, sources, adj_loc.dtype)
     changed, sweeps = D.numel() > 0, 0
     while sweeps < cap and changed:
-        mine = D[:, v_base:v_base + loc_n]
-        new = group.all_gather(relax_sweep_multi_ref(D, adj_loc, own=mine),
-                               dim=1)
-        changed = bool((new != D).any())
-        D, sweeps = new, sweeps + 1
+        D, changed_t = sharded_sweep(D, adj_loc, group)
+        changed, sweeps = bool(changed_t), sweeps + 1
     return D, sweeps
+
+
+def sharded_sweep(D: torch.Tensor, adj_loc: torch.Tensor, group):
+    """One sweep of :func:`sssp_multisource_sharded`: this rank's min-plus
+    matmul over its column block and one all-gather.  Returns the new
+    replicated D and a 0-dim bool tensor, whether any label changed."""
+    loc_n = adj_loc.shape[1]
+    v_base = group.rank * loc_n
+    mine = D[:, v_base:v_base + loc_n]
+    new = group.all_gather(relax_sweep_multi_ref(D, adj_loc, own=mine),
+                           dim=1)
+    return new, (new != D).any()

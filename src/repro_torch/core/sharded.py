@@ -94,33 +94,57 @@ def dijkstra_sharded(adj_loc: torch.Tensor, source: int, group, *,
         raise ValueError(f"a ({n_pad}, {loc_n}) slab is not 1/{group.size} "
                          f"of the padded matrix's columns")
     iters = int(n_pad if n_true is None else n_true)
-    minloc_fn = _MINLOC[minloc]
-    dev = adj_loc.device
-    v_base = group.rank * loc_n
+    carry = dijkstra_start(adj_loc, source, group)
+    for _ in range(iters):
+        carry = dijkstra_iteration(carry, adj_loc, group, minloc=minloc)
+    return dijkstra_finish(carry, group)
+
+
+def dijkstra_start(adj_loc: torch.Tensor, source: int, group) -> tuple:
+    """The carry of :func:`dijkstra_sharded`'s loop before its first
+    iteration: this rank's ``(labels, predecessors, visited)`` over its
+    owned columns, then the loop's constants (the column ids, INF and
+    the index sentinel on the device, made once)."""
+    loc_n, dev = adj_loc.shape[1], adj_loc.device
     cols = torch.arange(loc_n, device=dev)
     inf = torch.tensor(torch.inf, dtype=adj_loc.dtype, device=dev)
     sentinel = torch.tensor(INT32_MAX, dtype=torch.int64, device=dev)
-
-    loc_dist = torch.where(cols + v_base == source, 0.0, inf)
+    loc_dist = torch.where(cols + group.rank * loc_n == source, 0.0, inf)
     loc_pred = torch.full((loc_n,), -1, dtype=torch.int32, device=dev)
     visited = torch.zeros(loc_n, dtype=torch.bool, device=dev)
-    for _ in range(iters):
-        # local argmin over the unvisited owned vertices (lowest index)
-        masked = torch.where(visited, inf, loc_dist)
-        loc_arg = torch.argmin(masked)
-        loc_min = masked[loc_arg]
-        loc_u = torch.where(torch.isfinite(loc_min), loc_arg + v_base,
-                            sentinel)
-        # the global MINLOC: the paper's MPI_Allreduce
-        du, u = minloc_fn(loc_min, loc_u, group)
-        u_safe = u.clamp(0, n_pad - 1)
-        # the owner marks u visited
-        is_mine = ((u_safe >= v_base) & (u_safe < v_base + loc_n)
-                   & torch.isfinite(du))
-        visited |= (cols == u_safe - v_base) & is_mine
-        # relax the owned columns from row u
-        cand = du + adj_loc.index_select(0, u_safe.view(1))[0]
-        better = (cand < loc_dist) & ~visited
-        loc_dist = torch.where(better, cand, loc_dist)
-        loc_pred = torch.where(better, u.to(torch.int32), loc_pred)
+    return loc_dist, loc_pred, visited, cols, inf, sentinel
+
+
+def dijkstra_iteration(carry: tuple, adj_loc: torch.Tensor, group, *,
+                       minloc: MinlocImpl = "allgather") -> tuple:
+    """One iteration of :func:`dijkstra_sharded` (the paper's loop body):
+    the local argmin, the global MINLOC, the owner's visit and the
+    relaxation of the owned columns.  Returns the next carry."""
+    loc_dist, loc_pred, visited, cols, inf, sentinel = carry
+    n_pad, loc_n = adj_loc.shape
+    v_base = group.rank * loc_n
+    # local argmin over the unvisited owned vertices (lowest index)
+    masked = torch.where(visited, inf, loc_dist)
+    loc_arg = torch.argmin(masked)
+    loc_min = masked.index_select(0, loc_arg.view(1))[0]  # no host read
+    loc_u = torch.where(torch.isfinite(loc_min), loc_arg + v_base, sentinel)
+    # the global MINLOC: the paper's MPI_Allreduce
+    du, u = _MINLOC[minloc](loc_min, loc_u, group)
+    u_safe = u.clamp(0, n_pad - 1)
+    # the owner marks u visited
+    is_mine = ((u_safe >= v_base) & (u_safe < v_base + loc_n)
+               & torch.isfinite(du))
+    visited |= (cols == u_safe - v_base) & is_mine
+    # relax the owned columns from row u
+    cand = du + adj_loc.index_select(0, u_safe.view(1))[0]
+    better = (cand < loc_dist) & ~visited
+    loc_dist = torch.where(better, cand, loc_dist)
+    loc_pred = torch.where(better, u.to(torch.int32), loc_pred)
+    return loc_dist, loc_pred, visited, cols, inf, sentinel
+
+
+def dijkstra_finish(carry: tuple, group) -> tuple:
+    """``(dist, pred)`` of :func:`dijkstra_sharded` from the loop's last
+    carry: the owned blocks gathered (the paper's ``MPI_Gather``)."""
+    loc_dist, loc_pred = carry[:2]
     return group.all_gather(loc_dist), group.all_gather(loc_pred)

@@ -183,7 +183,8 @@ def _attend_mesh(q, k, v, *, q_pos, k_pos, k_valid, **kw):
 def _heads(x, w):
     """einsum("bsd,dhk->bshk") accumulated in f32, in the dtype of x."""
     d, h, k = w.shape
-    return cm.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+    y = cm.matmul(x, rules.mesh_reshape(w, (d, h * k)))
+    return rules.mesh_reshape(y, (*y.shape[:-1], h, k))
 
 
 def _project_q(p, x, cfg, positions, theta, *, rope=True):
@@ -213,7 +214,9 @@ def _out_proj(p, ctx, cfg=None):
     attended over a bf16 cache, even with f32 parameters, as JAX's), under
     JAX's ``bf16_partial_reduce`` switch."""
     h, k, d = p["wo"].shape
-    out = cm.matmul_reduce(ctx.flatten(-2), p["wo"].reshape(h * k, d), cfg)
+    out = cm.matmul_reduce(
+        rules.mesh_reshape(ctx, (*ctx.shape[:-2], h * k)),
+        rules.mesh_reshape(p["wo"], (h * k, d)), cfg)
     return constrain(out, "hidden")
 
 
@@ -242,15 +245,86 @@ def decode_self_attention(p, x, pos, cache_k, cache_v, cfg, *,
     B, S = cache_k.shape[0], cache_k.shape[1]
     q = _project_q(p, x, cfg, pos[:, None], theta)
     k_new, v_new = _project_kv(p, x, cfg, pos[:, None], theta)
-    bidx = torch.arange(B, device=pos.device)
-    cache_k[bidx, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[bidx, pos] = v_new[:, 0].to(cache_v.dtype)
+    write_at(cache_k, k_new[:, 0], pos)
+    write_at(cache_v, v_new[:, 0], pos)
     k_pos = torch.arange(S, dtype=pos.dtype, device=pos.device).expand(B, S)
     valid = k_pos <= pos[:, None]
     ctx = attend(q, cache_k, cache_v, q_pos=pos[:, None], k_pos=k_pos,
                  k_valid=valid, causal=True, window=window,
                  attn_softcap=cfg.attn_softcap)
     return _out_proj(p, ctx, cfg), cache_k, cache_v
+
+
+def _seq_block(cache) -> tuple:
+    """(this rank's block of a DTensor cache (B, S, ...), the global
+    position of its first slot): the sequence dim's shards taken in mesh
+    order, as DTensor lays out a dim split over several mesh dims."""
+    from torch.distributed.tensor import Shard
+
+    local = cache.to_local()
+    blk = 0
+    for i, (p, c) in enumerate(zip(cache.placements,
+                                   cache.device_mesh.get_coordinate())):
+        if isinstance(p, Shard) and p.dim == 1:
+            blk = blk * cache.device_mesh.size(i) + c
+    return local, blk * local.shape[1]
+
+
+def _like_cache(cache, drop_seq: bool) -> list:
+    """Placements of a tensor laid out as ``cache`` but whole along the
+    sequence (whose dim it lacks when ``drop_seq``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for p in cache.placements:
+        d = p.dim if isinstance(p, Shard) else None
+        if d is None or d == 1:
+            out.append(Replicate())
+        else:
+            out.append(Shard(d - 1 if drop_seq and d > 1 else d))
+    return out
+
+
+def write_at(cache, new, pos):
+    """``cache[b, pos[b]] = new[b]`` for every row ``b``, in place: cache
+    (B, S, ...), new (B, ...), pos (B,).  On a device mesh each rank
+    writes its own block of the cache (JAX's partitioned
+    dynamic-update-slice): its rows and heads, at the positions that
+    fall in its block of the sequence."""
+    if not is_dtensor(cache):
+        bidx = torch.arange(cache.shape[0], device=pos.device)
+        cache[bidx, pos] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    local, first = _seq_block(cache)
+    nl = rules.local_block(new, mesh, _like_cache(cache, True)).to(
+        local.dtype)
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+            else Replicate() for p in cache.placements]
+    lp = rules.local_block(pos, mesh, rows) - first
+    s_loc = local.shape[1]
+    mine = ((lp >= 0) & (lp < s_loc)).view((-1,) + (1,) * (nl.dim() - 1))
+    lp = lp.clamp(0, s_loc - 1)
+    bidx = torch.arange(local.shape[0], device=lp.device)
+    local[bidx, lp] = torch.where(mine, nl, local[bidx, lp])
+
+
+def write_prefix(cache, new):
+    """``cache[:, :T] = new`` in place (new (B, T, ...)); on a device mesh
+    each rank writes the positions that fall in its block of the
+    sequence."""
+    if not is_dtensor(cache):
+        cache[:, :new.shape[1]] = new.to(cache.dtype)
+        return
+    local, first = _seq_block(cache)
+    nl = rules.local_block(new, cache.device_mesh,
+                           _like_cache(cache, False))
+    lo = max(0, first)
+    hi = min(new.shape[1], first + local.shape[1])
+    if lo < hi:
+        local[:, lo - first:hi - first] = nl[:, lo:hi].to(local.dtype)
 
 
 def cross_attention(p, x, positions, ctx_kv, cfg, *, q_chunk=0):

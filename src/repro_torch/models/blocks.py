@@ -134,9 +134,8 @@ def _sandwich(p, name, y, cfg):
 
 def _write_full_kv(entry, k, v, names=("k", "v")):
     """Fill the cache's first S positions with the prefill K/V."""
-    S = k.shape[1]
     for name, t in zip(names, (k, v)):
-        entry[name][:, :S] = t.to(entry[name].dtype)
+        attn.write_prefix(entry[name], t)
     return entry
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import constrain, mesh_reshape
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -38,12 +38,16 @@ def dot_f32(a, b):
     (N, K, P).  Unlike dtypes promote first (f32 x bf16 is an f32 product,
     as ``jnp.einsum``'s).  Two bf16 operands on CUDA stay bf16 on the
     tensor cores with an f32 output (``out_dtype``); elsewhere they are
-    upcast, which gives the same exact products and f32 sums.
+    upcast, which gives the same exact products and f32 sums.  Meta
+    tensors (the dry run's) take the CUDA branch, so a trace of them
+    counts the card's ops.
     """
-    if a.dtype == b.dtype == torch.bfloat16 and a.is_cuda:
+    if (a.dtype == b.dtype == torch.bfloat16
+            and a.device.type in ("cuda", "meta")):
         if b.dim() == 2:
-            out = _Bf16DotF32.apply(a.reshape(-1, a.shape[-1]), b)
-            return out.reshape(*a.shape[:-1], b.shape[-1])
+            out = _Bf16DotF32.apply(
+                mesh_reshape(a, (-1, a.shape[-1])), b)
+            return mesh_reshape(out, (*a.shape[:-1], b.shape[-1]))
         return _Bf16DotF32.apply(a, b)
     return torch.matmul(a.float(), b.float())
 

@@ -26,4 +26,8 @@ def mlp(p, x, cfg=None):
     g = cm.dot_f32(x, p["wi_gate"])
     u = cm.dot_f32(x, p["wi_up"])
     h = constrain((F.silu(g) * u).to(x.dtype), "ffh")
-    return cm.matmul_reduce(h, p["wo"], cfg)
+    # on a mesh the down projection's sums over the model axis are
+    # reduced here, as the attention's output projection's are (XLA's
+    # partitioner places this on its own; DTensor's per-op choice would
+    # carry the partial sums into the next layer's products)
+    return constrain(cm.matmul_reduce(h, p["wo"], cfg), "hidden")

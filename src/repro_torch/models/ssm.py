@@ -193,6 +193,8 @@ def ssm_decode(p, x, cfg, conv_state, ssm_state):
     """One-token recurrence.  x: (B, 1, d); conv_state: (B, k-1, conv_dim);
     ssm_state: (B, H, P, N).  Returns (y, new_conv_state, new_ssm_state).
     The input projection is f32-accumulated, as JAX's always is."""
+    if rules.is_dtensor(x):
+        return _ssm_decode_mesh(p, x, cfg, conv_state, ssm_state)
     Bsz, _, d = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     zxbcdt = cm.matmul(x, p["in_proj"])
@@ -215,3 +217,23 @@ def ssm_decode(p, x, cfg, conv_state, ssm_state):
     y = y + xf * p["D"][None, :, None]
     y = y.reshape(Bsz, 1, di).to(x.dtype)
     return _gated_out(p, y, z, x, cfg), window[:, 1:], h
+
+
+def _ssm_decode_mesh(p, x, cfg, conv_state, ssm_state):
+    """:func:`ssm_decode` on DTensors: each rank steps its batch rows (the
+    dp axes, when they divide the batch) on its own block, every model
+    rank the whole block, as :func:`_ssm_forward_mesh` runs the full
+    sequence.  Returns the output and both states laid out by rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = Shard(0) if x.shape[0] % rules.dp_size() == 0 else Replicate()
+    x_pl = rules.layout(mesh, data=rows, model=Replicate())
+    rep = (Replicate(),) * mesh.ndim
+    xl, cl, sl = (rules.local_block(t, mesh, x_pl)
+                  for t in (x, conv_state, ssm_state))
+    pl = {k: rules.local_block(v, mesh, rep) for k, v in p.items()}
+    with rules.set_mesh(None):
+        outs = ssm_decode(pl, xl, cfg, cl, sl)
+    return tuple(DTensor.from_local(t, mesh, x_pl, run_check=False)
+                 for t in outs)

@@ -35,6 +35,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.api import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import common as cm
+from repro_torch.sharding import rules
 from repro_torch.sharding.rules import constrain, is_dtensor
 
 
@@ -255,7 +256,20 @@ def prefill(params, tokens, cfg, *, max_len: int, image_embeds=None,
 
     Returns (logits (B, vocab), caches, pos (B,))."""
     Bsz, S = tokens.shape
-    caches = init_cache(cfg, Bsz, max_len, cache_dtype, tokens.device)
+    mesh = rules.device_mesh()
+    if mesh is not None and is_dtensor(tokens):
+        # zero caches laid out by their specs on the mesh, as JAX's jit
+        # places the ones prefill makes (every cache entry starts at
+        # zero); the global shapes are plain meta tensors, made outside
+        # any dispatch mode (a tracer would count them as allocations)
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            shapes = init_cache(cfg, Bsz, max_len, cache_dtype, "meta")
+        caches = rules.zeros_on_mesh(
+            shapes, rules.port_cache_specs(shapes, mesh), mesh,
+            tokens.device)
+    else:
+        caches = init_cache(cfg, Bsz, max_len, cache_dtype, tokens.device)
     x, caches, _ = forward(params, tokens, cfg, image_embeds=image_embeds,
                            encoder_frames=encoder_frames, caches=caches)
     logits = logits_from_hidden(params, x[:, -1:], cfg)[:, 0]

@@ -41,6 +41,8 @@ import math
 import os
 from typing import Any, Sequence
 
+import torch
+
 # ---------------------------------------------------------------------------
 # specs and meshes
 # ---------------------------------------------------------------------------
@@ -479,6 +481,101 @@ def local_block(t, mesh, want, grad=None):
     if tuple(t.placements) != tuple(want):
         t = t.redistribute(mesh, want)
     return t.to_local(grad_placements=grad)
+
+
+def zeros_on_mesh(shapes, specs, mesh, device):
+    """A tree of zero DTensors on ``mesh``, each of a ``shapes`` leaf's
+    global shape and dtype laid out by its spec in ``specs``: this rank
+    allocates its block alone (JAX's zero caches placed by their
+    shardings)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.tree import leaves, unflatten
+
+    def one(t, spec):
+        block = torch.zeros(shard_shape(tuple(t.shape), spec, mesh),
+                            dtype=t.dtype, device=device)
+        return DTensor.from_local(block, mesh, placements(spec, mesh),
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return unflatten(shapes, [one(t, s) for t, s in zip(
+        leaves(shapes),
+        leaves(specs, is_leaf=lambda x: isinstance(x, Spec)))])
+
+
+def _splittable(t, dim: int, lead: int):
+    """``t`` laid out so that splitting dim ``dim`` into ``(lead, rest)``
+    keeps its layout legal: a shard of that dim over mesh dims whose
+    sizes do not divide ``lead`` (the heads of a flat (H * hd) product on
+    a model axis wider than H) is replicated first, as JAX's partitioner
+    reshards before such a reshape.  A plain tensor is returned as is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= t.ndim
+    want, k = list(t.placements), 1
+    for i, p in enumerate(want):
+        if isinstance(p, Shard) and p.dim == dim:
+            m = t.device_mesh.size(i)
+            if type(p) is Shard and lead % (k * m) == 0:
+                k *= m
+            else:
+                want[i] = Replicate()
+    return _redistributed(t, want)
+
+
+def _redistributed(t, want):
+    if list(want) == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, want)
+
+
+def _mesh_ready(t, shape):
+    """``t`` laid out so that ``t.reshape(shape)`` is legal on its mesh:
+    a dim split in two keeps the shards its leading factor divides
+    (:func:`_splittable`); dims merged into one keep the outer dim's
+    shards, the inner dims' are replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    src, dst = tuple(t.shape), tuple(shape)
+    p = 0
+    while p < min(len(src), len(dst)) and src[p] == dst[p]:
+        p += 1
+    q = 0
+    while (q < min(len(src), len(dst)) - p
+           and src[len(src) - 1 - q] == dst[len(dst) - 1 - q]):
+        q += 1
+    inner = range(p, len(src) - q)
+    if len(inner) == 1 and len(dst) > len(src):
+        return _splittable(t, p, dst[p])
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim in inner
+            and (pl.dim != p or type(pl) is not Shard) else pl
+            for pl in t.placements]
+    return _redistributed(t, want)
+
+
+def mesh_reshape(t, shape):
+    """``t.reshape(shape)``.  On a device mesh the layout is made one
+    that DTensor's view rules take and that leaves no strided shard
+    behind (which its product rules refuse) first
+    (:func:`_mesh_ready`), in the forward pass and for the gradient
+    alike; a plain tensor reshapes as it would."""
+    if not is_dtensor(t):
+        return t.reshape(shape)
+    shape = list(shape)
+    if -1 in shape:
+        shape[shape.index(-1)] = t.numel() // -math.prod(shape)
+    return _MeshReshape.apply(t, tuple(shape))
+
+
+class _MeshReshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.src = tuple(t.shape)
+        return _mesh_ready(t, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mesh_ready(g, ctx.src).reshape(ctx.src), None
 
 
 def is_dtensor(x) -> bool:

@@ -34,6 +34,13 @@ LM_MODULES = (
 #: model
 MESH_MODULES = ("sharding.rules", "launch.mesh", "launch.specs",
                 "launch.memory_model")
+#: the dry run and the roofline
+DRYRUN_MODULES = ("launch.cost_analysis", "launch.dryrun",
+                  "benchmarks.roofline")
+#: the TPU v5e roofline terms of the JAX package's hlo_analysis.py (bf16
+#: MXU and f32 VPU FLOP/s, HBM and ICI bytes/s): none is the port's
+TPU_CONSTANTS = ("197e12", "3.9e12", "819e9", "50e9/link", "ICI",
+                 "v5e")
 
 
 def _env():
@@ -63,7 +70,7 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
     assert out[1] == "[]"
     for name in PAPER_MODULES:
         assert f"'repro_torch.{name}'" in out[2], name
-    for name in LM_MODULES + MESH_MODULES:
+    for name in LM_MODULES + MESH_MODULES + DRYRUN_MODULES:
         assert f"'repro_torch.{name}'" in out[3], name
 
 
@@ -80,7 +87,7 @@ def _imported_roots(path: Path):
 def test_no_source_file_imports_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
-    for name in PAPER_MODULES + LM_MODULES + MESH_MODULES:
+    for name in PAPER_MODULES + LM_MODULES + MESH_MODULES + DRYRUN_MODULES:
         path = PKG / name.replace(".", "/")
         assert path.with_suffix(".py") in files \
             or path / "__init__.py" in files, name
@@ -88,6 +95,13 @@ def test_no_source_file_imports_jax_or_repro():
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro", "benchmarks",
                             "ml_dtypes"}, f
+
+
+def test_no_tpu_constant_in_the_port():
+    for f in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        text = f.read_text()
+        for c in TPU_CONSTANTS:
+            assert c not in text, (f, c)
 
 
 def _run_smoke(cwd: Path):

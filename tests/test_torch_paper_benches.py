@@ -317,9 +317,76 @@ def test_make_experiments_md_writes_every_section_with_the_card(
     assert md.read_text() == text + "\nhand-written note\n"
 
 
-def test_run_roofline_raises_naming_a13():
-    with pytest.raises(NotImplementedError, match="A.13"):
-        run.main(["--only", "roofline", "--device", "cpu"])
+def _dryrun_record(arch, shape, mesh, *, dot, traffic, gathered,
+                   model_flops):
+    """A record as ``repro_torch.launch.dryrun.run_cell`` writes one."""
+    from repro_torch.launch import cost_analysis as C
+    ws = C.WeightedStats(dot_flops=dot, vector_flops=dot / 100,
+                         traffic_bytes=traffic)
+    ws.collective_bytes["all-gather"] = gathered
+    ws.collective_count["all-gather"] = 3
+    chips = 256 if mesh == "pod" else 512
+    rf = C.roofline(ws, chips=chips, model_flops=model_flops)
+    return {"arch": arch, "shape": shape, "mesh": mesh, "chips": chips,
+            "kind": "train", "meta": {}, "trace_s": 12.5,
+            "memory_analysis": {"argument_size_in_bytes": 2e9,
+                                "output_size_in_bytes": 1e9,
+                                "temp_size_in_bytes": 90e9,
+                                "live_bytes_per_device": 93e9,
+                                "fits": False},
+            "weighted": ws.to_dict(), "roofline": rf.to_dict(),
+            "mfu_fraction": C.mfu_fraction(rf, chips), "overrides": {},
+            "traced": {"torch": "2.13.0+cpu", "device": "meta", "rank": 0}}
+
+
+def test_run_roofline_and_make_experiments_md_write_both_sections(
+        monkeypatch, tmp_path, capsys):
+    """``run --only roofline`` tabulates the dry-run records (a tagged
+    variant left out) and ``make_experiments_md`` writes the dry-run and
+    roofline sections from them, each headed by the prediction caption
+    and the torch version that traced the records."""
+    import json
+
+    from repro_torch.benchmarks import roofline
+    recs = tmp_path / "dryrun_torch"
+    recs.mkdir()
+    for name, rec in (
+            ("gemma3-1b__train_4k__pod", _dryrun_record(
+                "gemma3-1b", "train_4k", "pod", dot=4e15, traffic=3e12,
+                gathered=1e9, model_flops=2e17)),
+            ("sssp__bellman_512k__multipod", dict(_dryrun_record(
+                "sssp", "bellman_512k", "multipod", dot=0.0, traffic=1e11,
+                gathered=4e6, model_flops=None), kind="sssp")),
+            ("gemma3-1b__train_4k__pod_variant", _dryrun_record(
+                "gemma3-1b", "train_4k", "pod", dot=1.0, traffic=1.0,
+                gathered=0.0, model_flops=None))):
+        (recs / f"{name}.json").write_text(json.dumps(rec))
+    out_dir, md = tmp_path / "bench", tmp_path / "EXPERIMENTS_torch.md"
+    monkeypatch.setattr(roofline, "DRYRUN_DIR", str(recs))
+    monkeypatch.setattr(common, "OUT_DIR", str(out_dir))
+    monkeypatch.setattr(make_experiments_md, "MD", str(md))
+    assert run.main(["--only", "roofline", "--device", "cpu"]) == 0
+    table = (out_dir / "roofline_table.md").read_text().splitlines()
+    assert table[0] == roofline.CAPTION + (
+        "  Traced under torch 2.13.0+cpu: each device's bytes and whether "
+        "it fits follow that version's DTensor sharding choices.")
+    assert "| tensor_s | simt_s |" in table[2]
+    rows = [r for r in table if r.startswith("| gemma3-1b")
+            or r.startswith("| sssp")]
+    assert len(rows) == 2                          # the variant is left out
+    assert "| compute |" in rows[0] and "| 93.0 |" in rows[0]
+    assert "| memory |" in rows[1]
+    assert "worst roofline fractions" in capsys.readouterr().out
+    make_experiments_md.main()
+    text = md.read_text()
+    for name, head in (("dryrun", "| arch | shape | mesh | chips | trace_s"),
+                       ("roofline", "| arch | shape | mesh | tensor_s")):
+        body = text.split(f"<!-- BEGIN GENERATED:{name} -->\n")[1]
+        body = body.split(f"<!-- END GENERATED:{name} -->")[0].splitlines()
+        assert body[0] == table[0] and body[2].startswith(head)
+        assert len([r for r in body if r.startswith("| gemma3-1b")
+                    or r.startswith("| sssp")]) == 2
+    assert "| 12.5 | 93.0 | NO | 1.00 |" in text
 
 
 def test_run_failing_bench_exits_1(monkeypatch, tmp_path):
