@@ -60,8 +60,11 @@ the kernels' operation bounds use them) and then:
    in the window.  Then the kernels' two sharded modes
    (:func:`kernel_mode_phase`: row base and explicit labels) bitwise
    against their plain versions on block 2 of a 4-way partition of
-   sparse-4M, timed, one ``{"kernel_mode": ...}`` line each and a
-   ``{"kernel_modes": ...}`` summary before the kernels line;
+   sparse-4M, timed (explicit labels also on block 2 of hub-1M / 4, whose
+   hubs are long rows, and held untimed on a frontier of duplicate ids
+   and sentinel runs across the kernel's 32-row tiles), one
+   ``{"kernel_mode": ...}`` line each and a ``{"kernel_modes": ...}``
+   summary before the kernels line;
 7. the serving path (:func:`serve_phase`), with the launch counts set to 0
    just before it and read just after: a ``GraphRegistry`` on the card
    holding sparse-4M, hub-1M and a ``DynamicGraph`` of sparse-4M, each
@@ -1486,36 +1489,183 @@ def sharded_engines(graphs: dict, dense: dict, refs: dict, walls: dict,
               f"{name} sharded multisource differs from multisource")
 
 
-def kernel_mode_phase(cg, device, rng, launches: dict) -> tuple[dict, list]:
-    """The two kernel modes of the sharded engines against their plain
-    versions, bitwise, on block MODE_BLOCK of a MODE_NPROCS-way partition of
-    ``cg`` (one process, no collective, so the block offsets are exercised
-    though the group on the card has one rank), then timed as the other
-    kernels are: ``ell_relax`` with a row base over the block's incoming
-    CSR (padding arcs included) from a mixed label vector of n_pad, and
-    ``frontier_relax`` with explicit labels pushing a 10% random global
-    frontier (seven sentinel ids ``n_pad``) into the block.  Yardstick:
-    one ``scatter_reduce`` over the same arcs.  ``launches`` are each
-    kernel's launches in the sharded window.  Returns an entry a mode for
-    the summary and one line a mode."""
+def label_frontier(parts, ops, device, rng) -> tuple:
+    """The explicit-label push's inputs on the block whose operands are
+    ``ops``: a 10% random global frontier over the n_pad ids of ``parts``
+    (with every row of the block's out-CSR longer than a warp, the hubs,
+    on it), ascending as the exchange lists them, seven sentinel ids n_pad,
+    labels from a seed, and a mixed label vector of the block.  Returns
+    (fids, flab, blk0, long rows, largest degree)."""
     import torch
 
+    n_pad = parts.n_pad
+    ip = ops["out_indptr"].long()
+    deg = ip[1:n_pad + 1] - ip[:n_pad]
+    on = torch.tensor(rng.random(n_pad) < 0.1, device=device) | (deg > 32)
+    fids = torch.cat([torch.nonzero(on).flatten(),
+                      torch.full((7,), n_pad, device=device)])
+    flab = torch.tensor(rng.uniform(0.0, 2000.0, fids.numel()).astype(
+        "float32"), device=device)
+    return (fids, flab, mixed_dist(parts.loc_n, rng, device),
+            int((deg > 32).sum()), int(deg.max()))
+
+
+def label_push_check(ops, fids, flab, blk0, what: str):
+    """``frontier_relax`` with explicit labels against its plain version,
+    bitwise, labels and fallen-label mask, and the mask against ``new <
+    snapshot``.  Returns the kernel's labels and the plain version's
+    labels and mask."""
+    import torch
+
+    from repro_torch.kernels.frontier_relax.kernel import frontier_relax
+    from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
+
+    push = (fids, ops["out_indptr"], ops["out_dst"], ops["out_w"])
+    blk, fell = blk0.clone(), torch.zeros(blk0.numel(), dtype=torch.bool,
+                                          device=blk0.device)
+    frontier_relax(blk, *push, fell, flabels=flab)
+    ref, ref_fell = blk0.clone(), torch.zeros_like(fell)
+    frontier_relax_ref(ref, *push, ref_fell, flabels=flab)
+    check(bitwise(blk, ref) and torch.equal(fell, ref_fell),
+          f"frontier_relax (explicit labels) differs from its plain version "
+          f"on {what}")
+    check(torch.equal(fell, blk < blk0),
+          f"frontier_relax's mask is not new < snapshot (explicit labels, "
+          f"{what})")
+    return blk, ref, ref_fell
+
+
+def label_push_line(parts, ops, device, rng, shape: str,
+                    launches: int) -> dict:
+    """The explicit-label push on :func:`label_frontier`'s frontier of one
+    block: held bitwise (:func:`label_push_check`), then timed as the
+    other kernels are, beside its plain version and one ``scatter_reduce_``
+    over the same arcs (expanded before timing) and the bound of its ideal
+    bytes."""
+    import torch
+
+    from repro_torch.kernels.frontier_relax.kernel import frontier_relax
+    from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
+
+    fids, flab, blk0, n_long, max_deg = label_frontier(parts, ops, device,
+                                                       rng)
+    got, ref, ref_fell = label_push_check(ops, fids, flab, blk0, shape)
+    push = (fids, ops["out_indptr"], ops["out_dst"], ops["out_w"])
+    ip = ops["out_indptr"].long()
+    live = fids < parts.n_pad + 1
+    rows, rlab = fids[live], flab[live]
+    starts, degs = ip[rows], ip[rows + 1] - ip[rows]
+    E = int(degs.sum())
+    first = torch.repeat_interleave(starts - (torch.cumsum(degs, 0) - degs),
+                                    degs, output_size=E)
+    pos = first + torch.arange(E, device=device)
+    alab = torch.repeat_interleave(rlab, degs, output_size=E)
+    fdst, fw = ops["out_dst"][pos].long(), ops["out_w"][pos]
+    lib = blk0.clone()
+    lib.scatter_reduce_(0, fdst, alab + fw, "amin")
+    check(bitwise(lib, ref), f"scatter_reduce_ yardstick differs (explicit "
+                             f"labels, {shape})")
+    F, T = fids.numel(), int(torch.unique(fdst).numel())
+    W = int(ref_fell.sum())
+    b, by = bound_ms(F * 20 + E * 8 + T * 4 + W * 5, E)
+
+    blk, fell = blk0.clone(), torch.zeros_like(ref_fell)
+
+    def reset():
+        blk.copy_(blk0)
+        fell.zero_()
+
+    def lib_reset():
+        lib.copy_(blk0)
+
+    return dict(
+        mode="explicit_labels",
+        shape=f"{shape} F={F} E={E} targets={T} fell={W} "
+              f"rows_over_32_arcs={n_long} max_degree={max_deg}",
+        bitwise_equal_plain=True, max_abs_err=max_abs_err(got, ref),
+        ms=time_ms(lambda: frontier_relax(blk, *push, fell, flabels=flab),
+                   KERNEL_REPS, reset),
+        plain_ms=time_ms(lambda: frontier_relax_ref(blk, *push, fell,
+                                                    flabels=flab),
+                         PLAIN_REPS, reset),
+        library_ms=time_ms(lambda: lib.scatter_reduce_(0, fdst, alab + fw,
+                                                       "amin"),
+                           PLAIN_REPS, lib_reset),
+        bound_ms=b, bound_by=by, design=LABEL_PUSH_DESIGN,
+        launches=launches)
+
+
+def label_edge_frontier(parts, device, rng) -> tuple:
+    """An exchanged frontier cut against the explicit-label kernel's
+    32-row tiles: MODE_NPROCS owner segments of ascending ids, each padded
+    with a sentinel run of 31 or 33 (ids n_pad, INF labels, as the
+    exchange pads), every fifth id listed twice with a second label, and
+    the ids around each multiple of 32 listed twice.  Returns (fids,
+    flab)."""
+    import numpy as np
+    import torch
+
+    n_pad, seg = parts.n_pad, parts.loc_n
+    ids, lab = [], []
+    for p in range(MODE_NPROCS):
+        own = np.sort(rng.choice(np.arange(p * seg, (p + 1) * seg),
+                                 min(3000, seg), replace=False))
+        own = np.repeat(own, np.where(np.arange(own.size) % 5 == 0, 2, 1))
+        ids.append(own)
+        lab.append(rng.uniform(0.0, 2000.0, own.size))
+        pad = 31 if p % 2 else 33
+        ids.append(np.full(pad, n_pad))
+        lab.append(np.full(pad, np.inf))
+    ids, lab = np.concatenate(ids), np.concatenate(lab)
+    edge = np.arange(31, ids.size - 1, 32)
+    ids[edge + 1] = ids[edge]
+    return (torch.tensor(ids, device=device),
+            torch.tensor(lab.astype(np.float32), device=device))
+
+
+#: how the explicit-label push is built (csrc/frontier_relax.cu)
+LABEL_PUSH_DESIGN = ("one launch: persistent warps over tiles of 32 "
+                     "frontier rows, each tile's arcs 32 at a time, "
+                     "streaming reads")
+#: the explicit-label push's time before its redesign (PERF.md section 6,
+#: row 2s: block 2 of sparse-4M / 4 on an H100 80GB HBM3 at 700 W)
+LABEL_PUSH_EARLIER_MS = 0.0460
+
+
+def kernel_mode_phase(graphs: dict, device, rng,
+                      launches: dict) -> tuple[dict, list]:
+    """The two kernel modes of the sharded engines against their plain
+    versions, bitwise, on block MODE_BLOCK of a MODE_NPROCS-way partition
+    (one process, no collective, so the block offsets are exercised
+    though the group on the card has one rank), then timed as the other
+    kernels are: on sparse-4M ``ell_relax`` with a row base over the
+    block's incoming CSR (padding arcs included) from a mixed label vector
+    of n_pad, and ``frontier_relax`` with explicit labels pushing a 10%
+    random global frontier into the block (:func:`label_push_line`); the
+    latter again on hub-1M, whose hubs are long rows, and held once more
+    on sparse-4M against a frontier of duplicate ids and sentinel runs
+    across its tile edges (:func:`label_edge_frontier`, not timed).
+    Yardstick: one ``scatter_reduce`` over the same arcs.  ``launches``
+    are each kernel's launches in the sharded window.  Returns an entry a
+    timed mode for the summary and one line each, the duplicate check's
+    too."""
     from repro_torch.core.sharded_csr import partition_operands
     from repro_torch.kernels.common import lane_group
     from repro_torch.kernels.csr_relax.kernel import ell_relax
     from repro_torch.kernels.csr_relax.ref import ell_relax_csr_ref, row_ids
-    from repro_torch.kernels.frontier_relax.kernel import frontier_relax
-    from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
 
-    t0 = time.perf_counter()
-    parts = cg.partitioned(MODE_NPROCS)
-    part_s = time.perf_counter() - t0
-    ops = partition_operands(parts, MODE_BLOCK, device=device)
+    out, lines, part_s, blocks = {}, [], {}, {}
+    for name in ("sparse", "hub"):
+        t0 = time.perf_counter()
+        parts = graphs[name].partitioned(MODE_NPROCS)
+        part_s[name] = time.perf_counter() - t0
+        blocks[name] = (parts, partition_operands(parts, MODE_BLOCK,
+                                                  device=device))
+    parts, ops = blocks["sparse"]
     loc_n, n_pad, m = parts.loc_n, parts.n_pad, parts.nnz_max
     base = MODE_BLOCK * loc_n
     shape = (f"block {MODE_BLOCK} of sparse-4M / {MODE_NPROCS}: "
              f"n_pad={n_pad} loc_n={loc_n} nnz_max={m}")
-    out, lines = {}, []
 
     # ell_relax, row base
     dist = mixed_dist(n_pad, rng, device)
@@ -1540,65 +1690,35 @@ def kernel_mode_phase(cg, device, rng, launches: dict) -> tuple[dict, list]:
             0, dst, dist[src] + csr[2], "amin"), PLAIN_REPS),
         bound_ms=b, bound_by=by, group=lane_group(loc_n, m),
         launches=launches["ell_relax"])
+    lines.append(dict(kernel_mode="ell_relax", partition_s=part_s["sparse"],
+                      **out["ell_relax"]))
 
-    # frontier_relax, explicit labels
-    on = torch.tensor(rng.random(n_pad) < 0.1, device=device)
-    fids = torch.cat([torch.nonzero(on).flatten(),
-                      torch.full((7,), n_pad, device=device)])
-    flab = torch.tensor(rng.uniform(0.0, 2000.0, fids.numel()).astype(
-        "float32"), device=device)
-    blk0 = mixed_dist(loc_n, rng, device)
-    push = (fids, ops["out_indptr"], ops["out_dst"], ops["out_w"])
-    blk, fell = blk0.clone(), torch.zeros(loc_n, dtype=torch.bool,
-                                          device=device)
-    frontier_relax(blk, *push, fell, flabels=flab)
-    ref, ref_fell = blk0.clone(), torch.zeros_like(fell)
-    frontier_relax_ref(ref, *push, ref_fell, flabels=flab)
-    check(bitwise(blk, ref) and torch.equal(fell, ref_fell),
-          "frontier_relax (explicit labels) differs from its plain version")
-    check(torch.equal(fell, blk < blk0),
-          "frontier_relax's mask is not new < snapshot (explicit labels)")
-    ip = ops["out_indptr"].long()
-    live = fids < n_pad + 1
-    rows, rlab = fids[live], flab[live]
-    starts, degs = ip[rows], ip[rows + 1] - ip[rows]
-    E = int(degs.sum())
-    first = torch.repeat_interleave(starts - (torch.cumsum(degs, 0) - degs),
-                                    degs, output_size=E)
-    pos = first + torch.arange(E, device=device)
-    alab = torch.repeat_interleave(rlab, degs, output_size=E)
-    fdst, fw = ops["out_dst"][pos].long(), ops["out_w"][pos]
-    lib = blk0.clone()
-    lib.scatter_reduce_(0, fdst, alab + fw, "amin")
-    check(bitwise(lib, ref), "scatter_reduce_ yardstick differs (explicit "
-                             "labels)")
-    F, T = fids.numel(), int(torch.unique(fdst).numel())
-    W = int(fell.sum())
-    b, by = bound_ms(F * 20 + E * 8 + T * 4 + W * 5, E)
+    # frontier_relax, explicit labels: sparse-4M as before, then hub-1M
+    for key, name, label in (("frontier_relax", "sparse", "sparse-4M"),
+                             ("frontier_relax_hub", "hub", "hub-1M")):
+        parts, ops = blocks[name]
+        out[key] = label_push_line(
+            parts, ops, device, rng,
+            f"block {MODE_BLOCK} of {label} / {MODE_NPROCS}: "
+            f"n_pad={parts.n_pad} loc_n={parts.loc_n} "
+            f"nnz_max={parts.nnz_max}",
+            launches["frontier_relax"])
+        if key == "frontier_relax":
+            out[key]["earlier_ms"] = LABEL_PUSH_EARLIER_MS
+        lines.append(dict(kernel_mode=key, partition_s=part_s[name],
+                          **out[key]))
 
-    def reset():
-        blk.copy_(blk0)
-        fell.zero_()
-
-    def lib_reset():
-        lib.copy_(blk0)
-
-    out["frontier_relax"] = dict(
-        mode="explicit_labels",
-        shape=f"{shape} F={F} E={E} targets={T} fell={W}",
-        bitwise_equal_plain=True, max_abs_err=max_abs_err(blk, ref),
-        ms=time_ms(lambda: frontier_relax(blk, *push, fell, flabels=flab),
-                   KERNEL_REPS, reset),
-        plain_ms=time_ms(lambda: frontier_relax_ref(blk, *push, fell,
-                                                    flabels=flab),
-                         PLAIN_REPS, reset),
-        library_ms=time_ms(lambda: lib.scatter_reduce_(0, fdst, alab + fw,
-                                                       "amin"),
-                           PLAIN_REPS, lib_reset),
-        bound_ms=b, bound_by=by, group=lane_group(n_pad + 1, m),
-        launches=launches["frontier_relax"])
-    for k, line in out.items():
-        lines.append(dict(kernel_mode=k, partition_s=part_s, **line))
+    # duplicate ids and sentinel runs across the tile edges: bitwise only
+    parts, ops = blocks["sparse"]
+    fids, flab = label_edge_frontier(parts, device, rng)
+    label_push_check(ops, fids, flab, mixed_dist(parts.loc_n, rng, device),
+                     "duplicate ids and sentinel runs")
+    lines.append(dict(
+        kernel_mode="frontier_relax_tile_edges", mode="explicit_labels",
+        shape=f"block {MODE_BLOCK} of sparse-4M / {MODE_NPROCS}: "
+              f"F={fids.numel()}, every fifth id and each tile edge's id "
+              f"twice, sentinel runs of 31 and 33",
+        bitwise_equal_plain=True, design=LABEL_PUSH_DESIGN))
     return out, lines
 
 
@@ -3173,8 +3293,7 @@ def main() -> int:
         for k in ("ell_relax", "frontier_relax"):
             check(sharded[k] > 0,
                   f"{k} was not launched by the sharded engines")
-        modes, mode_lines = kernel_mode_phase(graphs["sparse"], device, rng,
-                                              sharded)
+        modes, mode_lines = kernel_mode_phase(graphs, device, rng, sharded)
         lines += mode_lines
         lines.append({"sharded_phase_s": time.perf_counter() - t0})
         CLOCK["sharded"] = time.perf_counter() - t0

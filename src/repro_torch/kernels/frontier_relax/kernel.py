@@ -9,9 +9,10 @@ version (ref.py) on CPU tensors.  ``frontier_relax.launches`` counts the
 kernel's launches.
 
 The kernel works in place: it lowers ``dist`` itself and flags the labels
-that fell in a mask the caller owns, so a call allocates 12 bytes a
-frontier row (each row's label, its Jacobi snapshot, and out-window) and
-nothing of size n.
+that fell in a mask the caller owns.  A call on dist's own labels
+allocates 12 bytes a frontier row (each row's label, its Jacobi snapshot,
+and out-window) and nothing of size n; a call with explicit labels is one
+launch and allocates nothing.
 """
 from __future__ import annotations
 
@@ -44,7 +45,9 @@ def frontier_relax(dist: torch.Tensor, fids: torch.Tensor,
     instead of ``dist[fids[f]]``, the ids are sources of the out-CSR (ids
     outside its R = ``len(out_indptr) - 1`` rows are skipped), and
     ``dist``, ``out_dst`` and ``fell`` are a block of targets: the local
-    push of frontier_sharded, whose labels come from the exchange.
+    push of frontier_sharded, whose labels come from the exchange.  On
+    CUDA tensors that mode is one launch of its own warp-balanced kernel:
+    no scratch, and no lane-group width (the C entry ignores it).
     """
     n = dist.shape[0]
     m = out_dst.shape[0]
@@ -67,15 +70,17 @@ def frontier_relax(dist: torch.Tensor, fids: torch.Tensor,
     F = fids.shape[0]
     if F == 0 or m == 0:
         return fell
-    # the F rows' out-windows and labels, gathered before the push
-    scratch = torch.empty(3 * F, dtype=torch.int32, device=dist.device)
+    if flabels is None:
+        # the F rows' out-windows and labels, gathered before the push
+        scratch = torch.empty(3 * F, dtype=torch.int32, device=dist.device)
+        labels, scratch_ptr = None, scratch.data_ptr()
+        bound, group = n, common.lane_group(n, m)
+    else:
+        labels, scratch_ptr, bound, group = flabels.data_ptr(), None, rows, 0
     rc = common.launcher("frontier_relax", _ARGS)(
-        dist.data_ptr(), fids.data_ptr(),
-        None if flabels is None else flabels.data_ptr(), scratch.data_ptr(),
-        F, n if flabels is None else rows, out_indptr.data_ptr(),
-        out_dst.data_ptr(), out_w.data_ptr(), fell.data_ptr(),
-        common.lane_group(n if flabels is None else rows, m),
-        common.stream(dist))
+        dist.data_ptr(), fids.data_ptr(), labels, scratch_ptr, F, bound,
+        out_indptr.data_ptr(), out_dst.data_ptr(), out_w.data_ptr(),
+        fell.data_ptr(), group, common.stream(dist))
     common.raise_on_error(rc, "frontier_relax")
     frontier_relax.launches += 1
     return fell

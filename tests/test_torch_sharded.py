@@ -19,7 +19,10 @@ over gloo.
   on the default mesh JAX's raises at P = 4, queue C) and against JAX's
   single-device ``bellman``.
 - The row-base ``ell_relax`` and explicit-label ``frontier_relax`` plain
-  paths against a direct numpy min.
+  paths against a direct numpy min, the latter on frontiers cut against
+  its CUDA kernel's 32-row tiles (``_frontier_case``), and the wrapper's
+  CUDA branch with the C entry faked (its ctypes arguments in both
+  modes).
 - ``sssp_run --procs 2`` and ``run_bench --smoke --devices 2`` on the CPU.
 
 Each P runs ONE spawned gloo group (core/_dist.spawn, file store under
@@ -468,16 +471,72 @@ def test_ell_relax_row_base_checks_the_block():
         ell_relax(d, ip, src, w)               # without a base: n rows
 
 
-@pytest.mark.parametrize("nprocs", [1, 2, 4])
-def test_frontier_relax_explicit_labels_plain_vs_numpy(nprocs):
-    """A push of given labels from global ids (some twice, the sentinel
-    n_pad and an id past the rows included) into each owner's block,
-    against a direct numpy min, fallen-label mask too."""
-    parts = carry(_graphs()["random"]).partitioned(nprocs)
-    rng = np.random.default_rng(nprocs)
-    ids = np.concatenate([rng.choice(parts.n_pad, 40, replace=False),
-                          [5, 5, parts.n_pad, parts.n_pad + 7]])
+FRONTIER_CASES = ("mixed", "sentinels", "f31", "f33", "f1000",
+                  "dup_at_tile_edge", "inf_label", "past_rows",
+                  "every_third")
+
+
+def _frontier_case(case, parts, seed):
+    """Global ids (int64) and labels (f32) of one exchanged frontier, cut
+    to meet the explicit-label kernel's 32-row tiles at their edges:
+    ``mixed`` 40 random ids with one listed twice, the sentinel n_pad
+    and an id past the rows; ``sentinels`` only sentinels; ``f31`` /
+    ``f33`` / ``f1000`` sorted ids, the last in four owner segments each
+    padded with sentinels and INF labels as the exchange pads them;
+    ``dup_at_tile_edge`` the longest row listed at rows 31 and 32, with
+    two labels; ``inf_label`` some INF labels; ``past_rows`` the ids -1,
+    n_pad + 1 (the out-CSR's row count) and n_pad + 7 among real ones;
+    ``every_third`` ids 0, 3, ... up to the sentinel."""
+    rng = np.random.default_rng(seed)
+    n_pad = parts.n_pad
+
+    def some(k):
+        return np.sort(rng.choice(n_pad, k, replace=k > n_pad))
+
+    if case == "mixed":
+        ids = np.concatenate([rng.choice(n_pad, 40, replace=False),
+                              [5, 5, n_pad, n_pad + 7]])
+    elif case == "sentinels":
+        ids = np.full(40, n_pad)
+    elif case in ("f31", "f33"):
+        ids = some(int(case[1:]))
+    elif case == "f1000":
+        width, seg = 250, -(-n_pad // 4)
+        ids = np.full((4, width), n_pad)
+        lab = np.full((4, width), np.inf, np.float32)
+        for p in range(4):
+            own = np.arange(p * seg, min((p + 1) * seg, n_pad))
+            k = min(own.size, 150 + 30 * p)
+            ids[p, :k] = np.sort(rng.choice(own, k, replace=False))
+            lab[p, :k] = rng.uniform(0, 300, k)
+        return ids.ravel().astype(np.int64), lab.ravel()
+    elif case == "dup_at_tile_edge":
+        hub = int(np.argmax(np.diff(parts.out_indptr, axis=1).sum(axis=0)))
+        ids = some(64)
+        ids[31] = ids[32] = hub
+    elif case == "inf_label":
+        ids = some(40)
+    elif case == "every_third":
+        ids = np.arange(0, n_pad + 1, 3)
+    else:
+        ids = np.concatenate([some(30), [-1, n_pad + 1, n_pad + 7]])
     lab = rng.uniform(0, 300, ids.size).astype(np.float32)
+    if case == "inf_label":
+        lab[rng.random(ids.size) < 0.4] = np.inf
+    elif case == "dup_at_tile_edge":
+        lab[31], lab[32] = 40.0, 30.0
+    return ids.astype(np.int64), lab
+
+
+@pytest.mark.parametrize("case", FRONTIER_CASES)
+@pytest.mark.parametrize("graph", ["random", "hub"])
+@pytest.mark.parametrize("nprocs", [1, 2, 4])
+def test_frontier_relax_explicit_labels_plain_vs_numpy(nprocs, graph, case):
+    """A push of given labels from global ids into each owner's block
+    (every frontier of :func:`_frontier_case`, hub's long rows included),
+    against a direct numpy min, fallen-label mask too."""
+    parts = carry(_graphs()[graph]).partitioned(nprocs)
+    ids, lab = _frontier_case(case, parts, nprocs)
     for rank in range(nprocs):
         ops = partition_operands(parts, rank, device="cpu")
         ip, dst = parts.out_indptr[rank], parts.out_dst_loc[rank]
@@ -495,6 +554,65 @@ def test_frontier_relax_explicit_labels_plain_vs_numpy(nprocs):
                        flabels=torch.tensor(lab))
         assert blk.numpy().tobytes() == want.tobytes()
         assert np.array_equal(fell.numpy(), want < blk0)
+
+
+@pytest.mark.parametrize("labelled", [False, True])
+def test_frontier_relax_cuda_branch_passes_the_c_entry_its_mode(
+        monkeypatch, labelled):
+    """The wrapper's CUDA branch, with the launch faked on CPU tensors:
+    with explicit labels the C entry gets the labels' pointer, a null
+    scratch pointer and bound = the out-CSR's rows, and nothing is
+    allocated; on dist's own labels a 3F int32 scratch and bound = n.
+    Checks every argument in the ctypes order of ``_ARGS``."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.frontier_relax import kernel as KF
+
+    parts = carry(_graphs()["random"]).partitioned(2 if labelled else 1)
+    ops = partition_operands(parts, 0, device="cpu")
+    n = parts.loc_n if labelled else parts.n_pad
+    ids, lab = _frontier_case("f33", parts, 0)
+    fids, flab = torch.tensor(ids), torch.tensor(lab)
+    dist = torch.tensor(_labels(n, 0))
+    fell = torch.zeros(n, dtype=torch.bool)
+    calls, made = [], []
+    empty = torch.empty
+
+    def spy_empty(*a, **kw):
+        t = empty(*a, **kw)
+        made.append(t)
+        return t
+
+    def fake_launcher(name, argtypes):
+        assert (name, argtypes) == ("frontier_relax", KF._ARGS)
+        return lambda *args: calls.append(args) or 0
+
+    monkeypatch.setattr(common, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(common, "launcher", fake_launcher)
+    monkeypatch.setattr(common, "stream", lambda t: 1234)
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    before = KF.frontier_relax.launches
+    out = (ops["out_indptr"], ops["out_dst"], ops["out_w"])
+    frontier_relax(dist, fids, *out, fell,
+                   flabels=flab if labelled else None)
+    monkeypatch.undo()
+    assert KF.frontier_relax.launches == before + 1
+    (args,) = calls
+    assert len(args) == len(KF._ARGS)
+    rows = ops["out_indptr"].numel() - 1
+    m = ops["out_dst"].numel()
+    head = (dist.data_ptr(), fids.data_ptr())
+    tail = (ops["out_indptr"].data_ptr(), ops["out_dst"].data_ptr(),
+            ops["out_w"].data_ptr(), fell.data_ptr())
+    if labelled:
+        assert made == []
+        assert args == (*head, flab.data_ptr(), None, fids.numel(), rows,
+                        *tail, 0, 1234)
+    else:
+        (scratch,) = made
+        assert scratch.dtype == torch.int32
+        assert scratch.shape == (3 * fids.numel(),)
+        assert args == (*head, None, scratch.data_ptr(), fids.numel(), n,
+                        *tail, common.lane_group(n, m), 1234)
 
 
 def test_frontier_relax_explicit_labels_checks_shape():
@@ -615,13 +733,14 @@ def test_nccl_p1_engines_match_frontier_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", FRONTIER_CASES)
+@pytest.mark.parametrize("graph", ["random", "hub"])
 @pytest.mark.parametrize("nprocs", [1, 4])
-def test_kernel_modes_match_plain_on_the_card(cuda, nprocs):
-    parts = carry(_graphs()["hub"]).partitioned(nprocs)
+def test_kernel_modes_match_plain_on_the_card(cuda, nprocs, graph, case):
+    parts = carry(_graphs()[graph]).partitioned(nprocs)
     d = torch.tensor(_labels(parts.n_pad, 0), device=cuda)
-    ids = torch.arange(0, parts.n_pad + 1, 3, device=cuda)
-    lab = torch.tensor(_labels(ids.numel(), 1), device=cuda)
-    lab = torch.where(torch.isfinite(lab), lab, 1.0)
+    ids, lab = (torch.tensor(a, device=cuda)
+                for a in _frontier_case(case, parts, nprocs))
     for rank in range(nprocs):
         ops = partition_operands(parts, rank, device=cuda)
         base = rank * parts.loc_n
