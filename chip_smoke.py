@@ -3009,9 +3009,12 @@ def lm_mesh_phase(device, lines: list, card: str) -> None:
 
 #: the dry-run phase: production cells traced by ``python -m
 #: repro_torch.launch.dryrun`` in child processes on the card's torch (fake
-#: tensors: nothing runs on the card); the LM cell one of the quick ones
-#: to trace that 2.11's DTensor runs
-DRYRUN_CELLS = (("gemma3-1b", "decode_32k"), ("sssp", "bellman_512k"))
+#: tensors: nothing runs on the card); gemma3-1b's decode one of the quick
+#: ones, and the two train cells that failed on torch 2.11 before the
+#: lookup became ``F.embedding`` (qwen1.5-0.5b with its QKV bias and
+#: 151,936-row tied table, mamba2-130m)
+DRYRUN_CELLS = (("gemma3-1b", "decode_32k"), ("sssp", "bellman_512k"),
+                ("qwen1.5-0.5b", "train_4k"), ("mamba2-130m", "train_4k"))
 #: seconds the dry-run children may take
 DRYRUN_TIMEOUT = 120
 #: the counter on real tensors at world 1: gemma2-2b at full width in bf16,
@@ -3037,9 +3040,13 @@ def dryrun_phase(device, lines: list, card: str) -> None:
     kernel: the counter runs the models' plain ops):
 
     a. :data:`DRYRUN_CELLS` on the pod mesh (256 fake ranks) through the
-       dry run's CLI, one child process a cell: each must exit 0; one
-       ``{"dryrun": ...}`` line.  The children trace on the host's cores
-       while (b) and (c) use the card;
+       dry run's CLI with ``--op-log``, one child process a cell: each
+       must exit 0, and no LM cell may all-gather its embedding table
+       (its record's ``table_gathers``, read from the same collectives
+       as its op log; a cell with any fails); one ``{"dryrun": ...}``
+       line with each cell's GB a device and collective bytes by kind.
+       The children trace on the host's cores while (b) and (c) use the
+       card;
     b. the counter over real CUDA tensors at world 1 on
        :data:`ROOFLINE_ARCH` (:func:`roofline_card`);
     c. the latency constant: the median of a one-float all-reduce on a
@@ -3059,7 +3066,8 @@ def dryrun_phase(device, lines: list, card: str) -> None:
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
-         "--shape", sh, "--mesh", "pod", "--out", out_dir], **kw)
+         "--shape", sh, "--mesh", "pod", "--out", out_dir, "--op-log"],
+        **kw)
         for a, sh in DRYRUN_CELLS]
     try:
         lines.append({"roofline_card": roofline_card(device, card)})
@@ -3078,6 +3086,9 @@ def dryrun_phase(device, lines: list, card: str) -> None:
         for a, sh in DRYRUN_CELLS:
             with open(os.path.join(out_dir, f"{a}__{sh}__pod.json")) as f:
                 recs.append(json.load(f))
+            check(not recs[-1]["table_gathers"], f"dryrun {a} {sh} "
+                  f"all-gathers its embedding table: "
+                  f"{recs[-1]['table_gathers']}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3092,7 +3103,11 @@ def dryrun_phase(device, lines: list, card: str) -> None:
             chips=rec["chips"], dominant=rf["dominant"],
             bound_time_s=rf["bound_time_s"], mfu_fraction=rec["mfu_fraction"],
             gb_per_device=rec["memory_analysis"]["live_bytes_per_device"]
-            / 1e9, trace_s=rec["trace_s"], traced=rec["traced"]))
+            / 1e9, collective_gb={
+                k: v / 1e9 for k, v in
+                rec["weighted"]["collective_bytes"].items()},
+            table_gathers=rec["table_gathers"], trace_s=rec["trace_s"],
+            traced=rec["traced"]))
     lines.append({"dryrun": dict(cells=cells, children_wall_s=wall,
                                  torch=torch.__version__, card=card)})
 

@@ -18,7 +18,8 @@ partitioned HLO is), and counts:
                   JAX's per-op rule for elementwise / reduce ops
   traffic_bytes   the bytes each op reads plus the bytes it writes; a
                   view counts nothing, a gather reads and writes the rows
-                  it takes, a scatter the rows it writes.  This is not
+                  it takes, a scatter the rows it writes, a lookup's
+                  backward its rows, index and whole gradient.  This is not
                   JAX's fusion-discounted model: the port fuses nothing,
                   so every op's operands and result cross HBM
   collectives     functional ``_c10d_functional.*`` ops (DTensor's) and
@@ -191,6 +192,9 @@ _GATHERS = {_aten.index_select.default, _aten.gather.default,
 _SCATTERS = {_aten.index_put_.default, _aten.scatter_.src,
              _aten.scatter_.value, _aten.index_copy_.default,
              _aten.index_add_.default, _aten.scatter_add_.default}
+#: a lookup's backward: reads the rows' gradients and the index, writes
+#: the whole table's gradient once (its zero fill and the rows summed in)
+_ROW_GRADS = {_aten.embedding_dense_backward.default}
 #: allocations that write nothing
 _ALLOCS = {_aten.empty.memory_format, _aten.empty_strided.default,
            _aten.empty_like.default, _aten.new_empty.default,
@@ -219,11 +223,13 @@ class StepCounter(TorchDispatchMode):
     op first; DTensor ops are let through to DTensor, whose local ops it
     then sees.
 
+    It keeps :attr:`collective_outputs`, kind -> ``"group: (input
+    shape) -> (output shape)"`` -> calls (loop weights not applied).
     With ``log``, it also keeps :attr:`ops`, ``"op[input shapes]"`` ->
-    [calls, output bytes, dot flops] (loop weights not applied), and
-    :attr:`peak_by_op`, the bytes live at the peak by the op that made
-    them (``"argument"`` for the step's arguments): what two traces of
-    one step differ by (``tools/op_log_diff.py``)."""
+    [calls, output bytes, dot flops], and :attr:`peak_by_op`, the bytes
+    live at the peak by the op that made them (``"argument"`` for the
+    step's arguments): what two traces of one step differ by
+    (``tools/op_log_diff.py``)."""
 
     def __init__(self, log: bool = False):
         super().__init__()
@@ -238,6 +244,7 @@ class StepCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self.ops = {} if log else None
         self.peak_by_op: dict = {}
+        self.collective_outputs: dict = {}
         self._depth = self._paused = 0
 
     # -- loop weights --------------------------------------------------------
@@ -331,6 +338,17 @@ class StepCounter(TorchDispatchMode):
             e[0] += 1
             e[1] += sum(_nbytes(t) for t in outs)
             e[2] += self.stats.dot_flops - dots
+        kind = self._kinds.get(func)
+        if kind is not None and outs:
+            # a functional collective's last string argument names its
+            # group
+            group = next((a for a in reversed(args) if isinstance(a, str)),
+                         "")
+            ins = _tensors(args)
+            k = (f"{group}: {tuple(ins[0].shape) if ins else ()} -> "
+                 f"{tuple(outs[0].shape)}")
+            calls = self.collective_outputs.setdefault(kind, {})
+            calls[k] = calls.get(k, 0) + 1
         if outs:
             self.track(outs, str(func))
         return out
@@ -370,6 +388,8 @@ class StepCounter(TorchDispatchMode):
                 _nbytes(t) for t in ins[1:])
         elif func in _SCATTERS:
             moved = 2 * sum(_nbytes(t) for t in ins[1:])
+        elif func in _ROW_GRADS:
+            moved = _nbytes(ins[0]) + _nbytes(ins[1]) + _nbytes(outs[0])
         else:
             moved = (sum(_nbytes(t) for t in ins)
                      + sum(_nbytes(t) for t in outs))

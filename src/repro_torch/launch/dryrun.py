@@ -4,7 +4,7 @@ tensors (no allocation, no card) and record one device's memory, costs,
 collectives and H100 roofline.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape decode_32k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both [--jobs 7]
 
 Where JAX lowers and compiles the step against 512 forced host devices,
 the port starts a fake process group of the mesh's size (256 ranks a pod,
@@ -111,6 +111,26 @@ def fake_args(args, specs, mesh, device_type: str):
                             for a, s in zip(arg_leaves, spec_leaves)])
 
 
+def table_gathers(collectives: dict, vocab: int, tp: int) -> list:
+    """The all-gathers in ``collectives`` (a counter's
+    ``collective_outputs`` named by :func:`by_axis`: kind -> ``"axis:
+    (input) -> (output)"`` -> calls) that gather a vocab-split table's
+    rows: over "model" (``tp`` ranks), of a 2-D block with ``vocab / tp``
+    rows or columns.  What a lookup must not issue (JAX's ``jnp.take``
+    gathers each rank's rows locally and sums).  A gather over "data" of
+    the same block (its d-split) is not one, though its output has
+    ``vocab`` rows when the two axes are of one size (the collective
+    gathers along dim 0)."""
+    calls = collectives.get("all-gather", {})
+    out = []
+    for key in calls:
+        axis, _, shapes = key.partition(": ")
+        block = ast.literal_eval(shapes.split(" -> ")[0])
+        if axis == "model" and len(block) == 2 and vocab // tp in block:
+            out.append(key)
+    return sorted(out)
+
+
 def _local_bytes(tree) -> int:
     from repro_torch.models.tree import leaves
     return sum(C._nbytes(C._local(t)) for t in leaves(tree)
@@ -195,7 +215,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str, *,
     (an ``AbstractMesh``) replaces the production mesh of ``mesh_kind``
     (small meshes for tests).  ``op_log`` also writes the counter's op
     log (:class:`cost_analysis.StepCounter`) beside the record, as
-    ``<name>.ops.json``."""
+    ``<name>.ops.json``.  The record's ``table_gathers`` lists an LM
+    cell's all-gathers of its embedding table (:func:`table_gathers`);
+    a cell with any raises, after writing its files."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.core._dist import ShardGroup
@@ -203,6 +225,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str, *,
 
     amesh = mesh or make_production_mesh(multi_pod=mesh_kind == "multipod")
     chips = amesh.size
+    mesh_shape = dict(zip(amesh.axis_names, amesh.axis_shape))
     dev_type = TRACE_DEVICE
     overrides = dict(overrides or {})
     rules.register_strategies()
@@ -210,6 +233,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str, *,
     t0 = time.time()
     with fake_world(amesh, "cuda") as dmesh, \
             FakeTensorMode(allow_non_fake_inputs=True):
+        vocab = None
         if arch == "sssp":
             group = ShardGroup(rank=0, size=chips,
                                device=torch.device(dev_type),
@@ -227,6 +251,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str, *,
                               cfg_overrides=overrides or None,
                               grad_accum=ga)
             cfg, kind, meta = cell.cfg, cell.kind, cell.meta
+            vocab = cfg.vocab_size
             args = fake_args(cell.args, cell.in_shardings, dmesh, dev_type)
             toks = meta["tokens_per_step"]
             model_flops = (C.analytic_train_flops(cfg, toks)
@@ -242,17 +267,21 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str, *,
             with rules.set_mesh(dmesh):
                 ws, mem, _ = C.count_step(cell.step_fn, *args,
                                           counter=counter)
+        collectives = by_axis(counter.collective_outputs, dmesh)
     trace_s = time.time() - t0
+    gathers = ([] if vocab is None else table_gathers(
+        collectives, vocab, mesh_shape.get("model", 1)))
     rf = C.roofline(ws, chips=chips, model_flops=model_flops)
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
-        "mesh_shape": dict(zip(amesh.axis_names, amesh.axis_shape)),
+        "mesh_shape": mesh_shape,
         "chips": int(chips), "kind": kind, "meta": meta,
         "trace_s": round(trace_s, 2),
         "memory_analysis": dict(mem, **parts),
         "weighted": ws.to_dict(),
         "roofline": rf.to_dict(),
         "mfu_fraction": C.mfu_fraction(rf, chips),
+        "table_gathers": gathers,
         "overrides": overrides,
         "traced": {"torch": torch.__version__, "device": dev_type,
                    "rank": 0},
@@ -260,16 +289,33 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str, *,
         "prediction": "from data-sheet peaks (H100 SXM, 700 W); not a "
                       "reading of a card",
     }
+    name = f"{arch}__{shape_name}__{mesh_kind}{tag}".replace("/", "_")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        name = f"{arch}__{shape_name}__{mesh_kind}{tag}".replace("/", "_")
         with open(os.path.join(out_dir, name + ".json"), "w") as f:
             json.dump(rec, f, indent=1)
         if op_log:
             with open(os.path.join(out_dir, name + ".ops.json"), "w") as f:
                 json.dump({"torch": torch.__version__, "ops": counter.ops,
-                           "peak_by_op": counter.peak_by_op}, f)
+                           "peak_by_op": counter.peak_by_op,
+                           "collective_outputs": collectives}, f)
+    if gathers:
+        raise RuntimeError(f"{name} all-gathers its embedding table: "
+                           f"{gathers}")
     return rec
+
+
+def by_axis(collectives: dict, dmesh) -> dict:
+    """A counter's ``collective_outputs`` with each of ``dmesh``'s groups
+    named by its mesh axis (call while the mesh's world is up)."""
+    axis_of = {dmesh.get_group(i).group_name: n
+               for i, n in enumerate(dmesh.mesh_dim_names)}
+
+    def named(key):
+        group, _, rest = key.partition(": ")
+        return f"{axis_of.get(group, group)}: {rest}"
+    return {kind: {named(k): n for k, n in calls.items()}
+            for kind, calls in collectives.items()}
 
 
 def cells_for(mesh_kind: str):
@@ -280,6 +326,56 @@ def cells_for(mesh_kind: str):
             yield arch, sh
     for sh in SSSP_SHAPES:
         yield "sssp", sh
+
+
+#: the shapes' trace times, slowest first (the records' ``trace_s``)
+_SHAPE_RANK = {"train_4k": 0, "prefill_32k": 1, "decode_32k": 2,
+               "long_500k": 3}
+
+
+def _slowest_first(cell) -> tuple:
+    """Sort key of an (arch, shape, mesh) cell: kimi-k2 first, the SSSP
+    cells last, then train > prefill > decode, the multipod first."""
+    arch, shape, mesh = cell
+    return (arch != "kimi-k2-1t-a32b", arch == "sssp",
+            _SHAPE_RANK.get(shape, 4), mesh != "multipod")
+
+
+def run_children(cells, jobs: int, rest: list) -> int:
+    """Trace each (arch, shape, mesh) cell in a child process of its own
+    (each with its own fake world), ``jobs`` at a time, the slowest
+    first; ``rest`` are the children's other arguments.  Each child's
+    output is printed when it ends.  Returns the number that failed."""
+    import tempfile
+
+    todo = sorted(cells, key=_slowest_first)
+    # fake tensors compute nothing: one thread a child
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    running, failures = [], 0
+    try:
+        while todo or running:
+            while todo and len(running) < max(1, jobs):
+                arch, shape, mesh = todo.pop(0)
+                log = tempfile.TemporaryFile("w+")
+                running.append((subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", mesh,
+                     *rest], stdout=log, stderr=subprocess.STDOUT,
+                    env=env), log))
+            time.sleep(0.2)
+            for proc, log in [r for r in running
+                              if r[0].poll() is not None]:
+                running.remove((proc, log))
+                failures += proc.returncode != 0
+                log.seek(0)
+                print(log.read(), end="", flush=True)
+                log.close()
+    finally:
+        for proc, log in running:
+            proc.kill()
+            proc.wait()
+            log.close()
+    return failures
 
 
 def _summary(rec: dict) -> str:
@@ -306,6 +402,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="suffix for output filenames")
     ap.add_argument("--op-log", action="store_true",
                     help="also write each cell's op log (<name>.ops.json)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once, one child process a cell "
+                         "(--all or --mesh both)")
     args = ap.parse_args(argv)
 
     overrides = {}
@@ -319,32 +418,27 @@ def main(argv=None) -> int:
     if not args.all and not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
     meshes = ["pod", "multipod"] if args.mesh == "both" else [args.mesh]
-    if len(meshes) > 1:
-        # one mesh a child process, each with its own fake world
-        cells = ["--all"] if args.all else ["--arch", args.arch,
-                                            "--shape", args.shape]
+    todo = [(a, s, mk) for mk in meshes
+            for a, s in (cells_for(mk) if args.all
+                         else [(args.arch, args.shape)])]
+    if len(todo) > 1:
         rest = ["--out", args.out, "--tag", args.tag] + [
             f"--override={kv}" for kv in args.override] + (
             ["--op-log"] if args.op_log else [])
-        return max(subprocess.call(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *cells,
-             "--mesh", mk, *rest]) for mk in meshes)
-    mk = meshes[0]
-    todo = ([(a, s) for a, s in cells_for(mk)] if args.all
-            else [(args.arch, args.shape)])
-    failures = 0
-    for arch, sh in todo:
-        try:
-            rec = run_cell(arch, sh, mk, args.out, overrides=overrides,
-                           tag=args.tag, op_log=args.op_log)
-            print(_summary(rec), flush=True)
-        except Exception:            # the boundary: report, go on, exit 1
-            failures += 1
-            print(f"[FAIL] {arch} {sh} {mk}\n{traceback.format_exc()}",
-                  flush=True)
-    print(f"done: {len(todo) - failures}/{len(todo)} cells passed",
-          flush=True)
-    return 1 if failures else 0
+        failures = run_children(todo, args.jobs, rest)
+        print(f"done: {len(todo) - failures}/{len(todo)} cells passed",
+              flush=True)
+        return 1 if failures else 0
+    (arch, sh, mk), = todo
+    try:
+        rec = run_cell(arch, sh, mk, args.out, overrides=overrides,
+                       tag=args.tag, op_log=args.op_log)
+    except Exception:                # the boundary: report, exit 1
+        print(f"[FAIL] {arch} {sh} {mk}\n{traceback.format_exc()}",
+              flush=True)
+        return 1
+    print(_summary(rec), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

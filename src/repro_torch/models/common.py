@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.sharding.rules import constrain, mesh_reshape
+from repro_torch.sharding.rules import (constrain, grad_in_layout,
+                                       mesh_reshape, replicate)
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -150,7 +151,13 @@ def init_embed(cfg, generator, device):
 
 
 def embed(tokens, params, cfg):
-    x = params["tok"][tokens]
+    # JAX's jnp.take: on a vocab-split table each rank looks up its own
+    # rows and the ranks' rows are summed (DTensor's masked partial), with
+    # no gather of the table.  The ids are replicated first, so DTensor's
+    # costs take that route on every mesh (with sequence-split ids, a
+    # small table's gather can cost less than the ids')
+    x = torch.nn.functional.embedding(replicate(tokens),
+                                      grad_in_layout(params["tok"]))
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     return constrain(x, "hidden")
@@ -158,5 +165,6 @@ def embed(tokens, params, cfg):
 
 def unembed(x, embed_params, cfg, lm_head=None):
     """f32 logits, whatever the parameters' dtype."""
-    w = lm_head if lm_head is not None else embed_params["tok"].T
+    w = (lm_head if lm_head is not None
+         else grad_in_layout(embed_params["tok"]).T)
     return softcap(dot_f32(x, w), cfg.logit_softcap)

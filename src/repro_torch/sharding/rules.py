@@ -479,7 +479,7 @@ def local_block(t, mesh, want, grad=None):
         t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
     if tuple(t.placements) != tuple(want):
-        t = t.redistribute(mesh, want)
+        t = redistribute(t, want)
     return t.to_local(grad_placements=grad)
 
 
@@ -527,7 +527,40 @@ def _splittable(t, dim: int, lead: int):
 def _redistributed(t, want):
     if list(want) == list(t.placements):
         return t
-    return t.redistribute(t.device_mesh, want)
+    return redistribute(t, want)
+
+
+def redistribute(t, want):
+    """``t.redistribute(t.device_mesh, want)``; from a partial sum (a
+    lookup's masked partial too) through :class:`_Redistribute`, whose
+    gradient rule is written out, so every torch version takes it."""
+    if not any(p.is_partial() for p in t.placements):
+        return t.redistribute(t.device_mesh, tuple(want))
+    return _Redistribute.apply(t, tuple(want))
+
+
+class _Redistribute(torch.autograd.Function):
+    """DTensor's redistribution, with torch 2.13's rule for the gradient
+    at a partial input written out: a gradient already in that partial
+    layout stays so; any other is made replicated on that mesh dim.
+    DTensor's own backward refuses to turn a sum-partial gradient into
+    the masked partial of a vocab-split lookup
+    (``torch.nn.functional.embedding``); the lookup's gradient is the
+    replicated one."""
+
+    @staticmethod
+    def forward(ctx, t, want):
+        ctx.src = tuple(t.placements)
+        return t.redistribute(t.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        back = tuple(gp if gp == p else Replicate() if p.is_partial() else p
+                     for p, gp in zip(ctx.src, g.placements))
+        if back == tuple(g.placements):
+            return g, None
+        return g.redistribute(g.device_mesh, back), None
 
 
 def _mesh_ready(t, shape):
@@ -578,6 +611,43 @@ class _MeshReshape(torch.autograd.Function):
         return _mesh_ready(g, ctx.src).reshape(ctx.src), None
 
 
+def replicate(x):
+    """``x`` replicated on the ambient device mesh; the identity with no
+    device mesh or on a plain tensor (as :func:`constrain`)."""
+    from torch.distributed.tensor import Replicate
+    mesh = device_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    want = (Replicate(),) * mesh.ndim
+    return x if tuple(x.placements) == want else redistribute(x, want)
+
+
+def grad_in_layout(t):
+    """``t`` for one use whose gradient comes back in ``t``'s own layout.
+    A tied table has two uses, the lookup and the unembedding, and each
+    sends back a gradient partial over a different axis (model, data);
+    adding a partial to a shard needs the shard made partial, which
+    torch 2.11 refuses ("redistribute from S(1) to P(sum)").  Laid out
+    as the table first, the two add with no redistribution, as JAX's
+    gradients come in their parameters' shardings."""
+    if not is_dtensor(t):
+        return t
+    return _GradInLayout.apply(t)
+
+
+class _GradInLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.placements = tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
@@ -597,4 +667,4 @@ def constrain(x, rule: str):
     want = placements(assign_spec(x.shape, prefs, mesh), mesh)
     if tuple(x.placements) == want:
         return x
-    return x.redistribute(mesh, want)
+    return redistribute(x, want)

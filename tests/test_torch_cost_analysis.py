@@ -6,6 +6,8 @@ cost_analysis), held to hand counts and to the JAX package's
   memory tally, each counted by hand; the op log (``StepCounter(log=
   True)``) of the pointwise case and ``tools/op_log_diff.py`` on two
   logs;
+- the lookup's backward (``aten.embedding_dense_backward``): its rows,
+  index and whole gradient, by hand;
 - one all-gather and one all-reduce on a fake group of 4 ranks (the
   direct ``c10d`` ops of ``ShardGroup`` and DTensor's functional ones),
   the all-reduce's payload counted twice (once by ``collective_stats``,
@@ -126,6 +128,34 @@ def test_gather_and_scatter_read_only_their_rows():
     ws, _, _ = _count(lambda c, i: c.index_put_((i,), torch.ones(2, 16)),
                       cache, idx)
     assert ws.traffic_bytes == 2 * (2 * 8 + 2 * 16 * 4) + 2 * 16 * 4
+
+
+def test_lookup_backward_writes_the_table_gradient_once():
+    """``aten.embedding_dense_backward`` (``F.embedding``'s backward,
+    ``models.common.embed``'s): the rows' gradients and the index read,
+    the V x d gradient written once (its zero fill); the lookup's
+    backward dispatches it, not a zero table and an ``index_put``."""
+    from repro_torch.models import common
+    V, d = 1000, 16
+    g = torch.ones(4, 8, d, dtype=torch.bfloat16)
+    idx = torch.zeros(4, 8, dtype=torch.int64)
+    ws, _, _ = _count(lambda g, i: torch.ops.aten.embedding_dense_backward(
+        g, i, V, -1, False), g, idx)
+    assert ws.traffic_bytes == 4 * 8 * d * 2 + 4 * 8 * 8 + V * d * 2
+    assert ws.vector_flops == 0
+
+    cfg = make_smoke(get_config("qwen1.5-0.5b"))
+    tok = torch.ones(V, d, dtype=torch.bfloat16, requires_grad=True)
+    c = C.StepCounter(log=True)
+    C.count_step(lambda t, i: torch.autograd.grad(
+        common.embed(i, {"tok": t}, cfg).sum(), t)[0], tok, idx, counter=c)
+    ops = {k.split("[")[0] for k in c.ops}
+    assert {"aten.embedding.default",
+            "aten.embedding_dense_backward.default"} <= ops
+    assert not {"aten.index.Tensor", "aten.index_put.default",
+                "aten.new_zeros.default"} & ops
+    assert c.ops["aten.embedding_dense_backward.default"
+                 "[(4, 8, 16), (4, 8)]"] == [1, V * d * 2, 0.0]
 
 
 _COLLECTIVES_CHILD = r"""

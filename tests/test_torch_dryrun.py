@@ -14,7 +14,13 @@ holds one default group).
   one op log a mesh whose bytes live at the peak sum to the record's;
 - a smoke prefill counts the same on fake CPU and fake meta tensors in
   f32, and in bf16 the meta trace takes the card's tensor-core product
-  (``aten.mm.dtype``) where the CPU upcasts.
+  (``aten.mm.dtype``) where the CPU upcasts;
+- the embedding lookup on a fake (2, 2) mesh, its table split by vocab
+  over "model": forward and backward all-gather no table rows (an
+  indexing lookup did), and the op log's test for such a gather;
+- a cell's record names a table gather and the cell fails (an indexing
+  lookup patched in);
+- ``tools/dryrun_compare.py`` on two hand-made record sets.
 """
 import dataclasses
 import json
@@ -201,3 +207,152 @@ def _like(tree, dev):
     from repro_torch.models.tree import tree_map
     return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                           device=dev), tree)
+
+
+_LOOKUP = r"""
+import json
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch import configs
+from repro_torch.launch import cost_analysis as C, dryrun
+from repro_torch.models import common
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import AbstractMesh
+
+mesh = AbstractMesh((2, 2), ("data", "model"))
+out = {}
+with dryrun.fake_world(mesh, "cuda") as dm, \
+        FakeTensorMode(allow_non_fake_inputs=True):
+    for arch in ("qwen1.5-0.5b", "gemma3-1b"):
+        cfg = configs.make_smoke(configs.get_config(arch))
+        V, d = cfg.vocab_size, cfg.d_model
+        spec = rules.spec_for_param((("key", "embed"), ("key", "tok")),
+                                    (V, d), mesh)
+        tok = dryrun._fake_leaf(torch.empty((V, d), device="meta"), spec,
+                                dm, "meta").requires_grad_()
+        toks = dryrun._fake_leaf(
+            torch.empty((4, 24), dtype=torch.int32, device="meta"),
+            rules.batch_spec((4, 24), mesh), dm, "meta")
+
+        def step(tok, toks):
+            x = common.embed(toks, {"tok": tok}, cfg)
+            (g,) = torch.autograd.grad(x.float().sum(), tok)
+            return x, g
+
+        counter = C.StepCounter()
+        with rules.set_mesh(dm):
+            ws, _, (x, g) = C.count_step(step, tok, toks, counter=counter)
+        coll = dryrun.by_axis(counter.collective_outputs, dm)
+        out[arch] = dict(
+            vocab=V, spec=list(spec), x=list(x.shape), g=list(g.shape),
+            gathers=coll.get("all-gather", {}),
+            table=dryrun.table_gathers(coll, V, 2))
+print(json.dumps(out))
+"""
+
+
+def test_vocab_split_lookup_gathers_no_table():
+    """``models.common.embed`` on a fake (2, 2) mesh, the smoke table laid
+    out by ``tok``'s spec (vocab over "model", d over "data") and tokens
+    by batch: forward and backward issue no all-gather of the table's
+    vocab rows (JAX's ``jnp.take``: each rank's rows, then a sum)."""
+    got = _child(_LOOKUP)
+    for arch, r in got.items():
+        assert r["spec"] == ["model", "data"], arch
+        assert r["x"] == [4, 24, 64] and r["g"] == [r["vocab"], 64], arch
+        assert r["gathers"], arch          # the tokens are gathered
+        assert r["table"] == [], (arch, r["gathers"])
+
+
+_GATHERING_CELL = r"""
+import json, sys
+from repro_torch import configs
+from repro_torch.launch import dryrun, specs
+from repro_torch.models import common
+from repro_torch.sharding.rules import AbstractMesh, constrain
+
+specs.get_config = lambda arch: configs.make_smoke(configs.get_config(arch))
+mesh = AbstractMesh((2, 2), ("data", "model"))
+out = {"ok": dryrun.run_cell("qwen1.5-0.5b", "decode_32k", "pod",
+                             sys.argv[1], mesh=mesh)["table_gathers"]}
+# the lookup as an index, as it was before it became F.embedding
+common.embed = lambda tokens, params, cfg: constrain(params["tok"][tokens],
+                                                     "hidden")
+try:
+    dryrun.run_cell("qwen1.5-0.5b", "decode_32k", "pod", sys.argv[1],
+                    mesh=mesh, tag="_indexed")
+    out["raised"] = None
+except RuntimeError as e:
+    out["raised"] = str(e)
+with open(sys.argv[1] + "/qwen1.5-0.5b__decode_32k__pod_indexed.json") as f:
+    out["indexed"] = json.load(f)["table_gathers"]
+print(json.dumps(out))
+"""
+
+
+def test_run_cell_fails_a_cell_that_gathers_its_table(tmp_path):
+    """A smoke decode cell on a fake (2, 2) mesh: its record's
+    ``table_gathers`` is empty; with the lookup an index into the table,
+    the record names the gather of the (V / 2, d) block over "model" and
+    the cell raises after writing it."""
+    got = _child(_GATHERING_CELL, str(tmp_path))
+    gather = "model: (128, 32) -> (256, 32)"
+    assert got["ok"] == []
+    assert got["indexed"] == [gather]
+    assert got["raised"] is not None and gather in got["raised"]
+
+
+def test_table_gathers_reads_the_axis():
+    """A gather over "model" of a (V / tp, .) block or its transpose is the
+    table's; the same block over "data" (its d-split: the collective
+    gathers along dim 0, so its output has V rows when the axes are of
+    one size) and a 3-D logits block are not."""
+    from repro_torch.launch.dryrun import table_gathers
+    coll = {"all-gather": {
+        "model: (16384, 72) -> (262144, 72)": 1,
+        "model: (72, 16384) -> (1152, 16384)": 1,
+        "data: (16384, 72) -> (262144, 72)": 3,
+        "model: (16, 512, 16384) -> (256, 512, 16384)": 2,
+        "model: (8, 1) -> (128, 1)": 1}, "all-reduce": {
+        "model: (16384, 72) -> (16384, 72)": 1}}
+    assert table_gathers(coll, 262144, 16) == [
+        "model: (16384, 72) -> (262144, 72)",
+        "model: (72, 16384) -> (1152, 16384)"]
+    assert table_gathers(coll, 262144, 8) == []
+    assert table_gathers({}, 262144, 16) == []
+
+
+def test_dryrun_compare_names_each_difference(tmp_path):
+    """``tools/dryrun_compare.py`` on two hand-made record sets: equal dot
+    flops, the figures above 1% apart named, and the op whose output
+    bytes differ from the op logs (``tools/op_log_diff.py``'s diff)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from dryrun_compare import compare
+
+    def rec(torch_v, gb, ag):
+        return {"traced": {"torch": torch_v},
+                "memory_analysis": {"live_bytes_per_device": gb * 1e9},
+                "weighted": {"dot_flops": 10.0, "collective_bytes": {
+                    "all-gather": ag * 1e9, "all-reduce": 1e9}}}
+    ops = {"_c10d_functional.all_gather_into_tensor.default[(4, 8)]":
+           [2, 100, 0.0], "aten.mm.default[(4, 8), (8, 8)]": [1, 64, 10.0]}
+    peak = {"argument": 256, "aten.mm.default": 64}
+    for d, (v, gb, ag, calls) in {"a": ("2.13", 10.0, 5.0, 2),
+                                  "b": ("2.11", 10.05, 6.0, 7)}.items():
+        (tmp_path / d).mkdir()
+        (tmp_path / d / "x__decode_32k__pod.json").write_text(
+            json.dumps(rec(v, gb, ag)))
+        log = dict(ops)
+        log["_c10d_functional.all_gather_into_tensor.default[(4, 8)]"] = [
+            calls, 50 * calls, 0.0]
+        (tmp_path / d / "x__decode_32k__pod.ops.json").write_text(
+            json.dumps({"ops": log, "peak_by_op": peak}))
+    lines, summary = compare(str(tmp_path / "a"), str(tmp_path / "b"))
+    (line,) = lines
+    assert line["torch"] == ["2.13", "2.11"] and line["dot_flops_equal"]
+    assert line["differ"] == ["all-gather_gb"]       # 0.5% GB is not
+    assert line["top_ops"] == [(
+        "_c10d_functional.all_gather_into_tensor.default[(4, 8)]",
+        [[2, 100, 0.0], [7, 350, 0.0]])]
+    assert summary["figures_differ"] == ["x__decode_32k__pod"]
+    assert summary["dot_flops_differ"] == []

@@ -16,6 +16,11 @@ Bounds, fixed before measuring:
   its largest entry, of the single device's under an abstract mesh of
   the same shape (the MoE's groups are the data shards, as JAX's are);
   every rank's values equal;
+- the same f32 cases with the parameters laid out by their specs
+  (``rules.port_param_specs``; a tied table split by vocab over "model"
+  and d over "data") and the batch by data: ``train_loss`` and every
+  gradient leaf within the bounds above, each gradient in its
+  parameter's layout;
 - the same four archs in bf16 on each mesh, a second witness of the
   gradient reduction where rounding keeps the mesh from matching one
   device: each leaf's gradient against the f32 gradient of the same
@@ -136,6 +141,24 @@ def _reference(shape):
     return out
 
 
+def _spec_laid(params, batch, cfg, mesh):
+    """``params`` laid out by their specs (``rules.port_param_specs``: the
+    table split by vocab over "model" and by d over "data") and ``batch``
+    by ``rules.batch_spec``, as the dry run's cells are."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.tree import unflatten
+
+    place = lambda t, s: distribute_tensor(t, mesh, rules.placements(s,
+                                                                     mesh))
+    specs = leaves(rules.port_param_specs(params, cfg, mesh),
+                   is_leaf=lambda x: isinstance(x, rules.Spec))
+    return (unflatten(params, [place(t, s)
+                               for t, s in zip(leaves(params), specs)]),
+            {k: place(v, rules.batch_spec(tuple(v.shape), mesh))
+             for k, v in batch.items()})
+
+
 def _mesh_rank(group, shape):
     """Every check's values on this rank of a ``shape`` mesh."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -164,6 +187,14 @@ def _mesh_rank(group, shape):
                                    cfg)[2]
             out[arch, "bf16"] = [full(g).float().numpy()
                                  for g in leaves(grads)]
+            cfg, params, batch = _inputs(arch)
+            loss, _, grads = value_and_grad(*_spec_laid(params, batch, cfg,
+                                                        mesh), cfg)
+            out[arch, "spec"] = (
+                float(full(loss)), [full(g).numpy() for g in leaves(grads)],
+                [str(g.placements) for g in leaves(grads)],
+                [str(t.placements) for t in leaves(_spec_laid(
+                    params, batch, cfg, mesh)[0])])
         cfg, p, x = _ep_inputs()
         calls = []
         ep = M.moe_ep
@@ -214,6 +245,30 @@ def test_model_on_mesh_matches_one_device(mesh_runs, shape, arch):
     for other in got[1:]:
         assert other[arch][1] == r0[1]
         for a, b in zip(other[arch][2], r0[2]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", MESHES, ids=str)
+def test_spec_laid_model_on_mesh_matches_one_device(mesh_runs, shape, arch):
+    """The parameters laid out by their specs (a tied table split by vocab
+    and d, so the lookup's masked partial and its backward run) and the
+    batch by data: ``train_loss`` and every gradient leaf within the
+    bounds above of one device's, each gradient in its parameter's
+    layout, every rank's values equal."""
+    got, ref = mesh_runs[shape]
+    _, loss, grads = ref[arch]
+    r0 = got[0][arch, "spec"]
+    assert abs(r0[0] - loss) <= TOL * abs(loss)
+    assert len(r0[1]) == len(grads)
+    for a, b in zip(r0[1], grads):
+        assert _close(a, b, TOL)
+    assert r0[2] == r0[3]
+    if shape == (2, 2):
+        assert "Shard(dim=0)" in r0[3][0], r0[3][0]   # the table is split
+    for other in got[1:]:
+        assert other[arch, "spec"][0] == r0[0]
+        for a, b in zip(other[arch, "spec"][1], r0[1]):
             np.testing.assert_array_equal(a, b)
 
 
