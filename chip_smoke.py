@@ -148,9 +148,10 @@ the kernels' operation bounds use them) and then:
    against the grouped path on one rank (f32: JAX's 2e-3 / 1e-4; bf16:
    two roundings); one ``{"lm_mesh": ...}`` line a part;
 15. the dry run and the roofline (:func:`dryrun_phase`), in its own
-   launch window (no kernel): two production cells traced on the pod
+   launch window (no kernel): five production cells traced on the pod
    mesh (256 fake ranks) by ``python -m repro_torch.launch.dryrun`` under
-   the card's torch; the step counter over real CUDA tensors on
+   the card's torch, each train cell's dot flops and all-to-all bytes
+   held to torch 2.13's; the step counter over real CUDA tensors on
    gemma2-2b at full width (prefill 1 × 8192, a batch-4 decode step), its
    counts equal to those over the dry run's fake meta tensors and
    its peak within 10% of the allocator's, each step's roofline bound
@@ -3014,7 +3015,20 @@ def lm_mesh_phase(device, lines: list, card: str) -> None:
 #: lookup became ``F.embedding`` (qwen1.5-0.5b with its QKV bias and
 #: 151,936-row tied table, mamba2-130m)
 DRYRUN_CELLS = (("gemma3-1b", "decode_32k"), ("sssp", "bellman_512k"),
-                ("qwen1.5-0.5b", "train_4k"), ("mamba2-130m", "train_4k"))
+                ("qwen1.5-0.5b", "train_4k"), ("mamba2-130m", "train_4k"),
+                ("gemma3-1b", "train_4k"))
+#: each train_4k cell's dot flops and all-to-all bytes a step on the pod
+#: under torch 2.13.0+cpu, from ``PYTHONPATH=src python -m
+#: repro_torch.launch.dryrun --all --mesh both --op-log --jobs 5`` on this
+#: tree (its records' ``weighted``): the card's torch must trace the same
+#: dot flops and all-to-all bytes within DRYRUN_A2A_RTOL, the routes that
+#: ``sharding.rules`` pins (rowwise, relayout, reduce_partial)
+DRYRUN_TORCH213 = {
+    "qwen1.5-0.5b": (36485747179520.0, 1778384896.0),
+    "mamba2-130m": (58809913442304.0, 201326592.0),
+    "gemma3-1b": (184797410361344.0, 3699376128.0),
+}
+DRYRUN_A2A_RTOL = 0.01
 #: seconds the dry-run children may take
 DRYRUN_TIMEOUT = 120
 #: the counter on real tensors at world 1: gemma2-2b at full width in bf16,
@@ -3043,8 +3057,12 @@ def dryrun_phase(device, lines: list, card: str) -> None:
        dry run's CLI with ``--op-log``, one child process a cell: each
        must exit 0, and no LM cell may all-gather its embedding table
        (its record's ``table_gathers``, read from the same collectives
-       as its op log; a cell with any fails); one ``{"dryrun": ...}``
-       line with each cell's GB a device and collective bytes by kind.
+       as its op log; a cell with any fails); a train_4k cell's dot
+       flops must equal, and its all-to-all bytes come within
+       :data:`DRYRUN_A2A_RTOL` of, torch 2.13's (:data:`DRYRUN_TORCH213`);
+       one ``{"dryrun": ...}`` line with each cell's GB a device,
+       collective bytes by kind, and a train cell's dot flops and
+       all-to-all bytes beside 2.13's.
        The children trace on the host's cores while (b) and (c) use the
        card;
     b. the counter over real CUDA tensors at world 1 on
@@ -3089,6 +3107,15 @@ def dryrun_phase(device, lines: list, card: str) -> None:
             check(not recs[-1]["table_gathers"], f"dryrun {a} {sh} "
                   f"all-gathers its embedding table: "
                   f"{recs[-1]['table_gathers']}")
+            if sh == "train_4k":
+                w = recs[-1]["weighted"]
+                dots, a2a = DRYRUN_TORCH213[a]
+                got = w["collective_bytes"]["all-to-all"]
+                check(w["dot_flops"] == dots, f"dryrun {a} {sh}: dot flops "
+                      f"{w['dot_flops']} against torch 2.13's {dots}")
+                check(abs(got - a2a) <= DRYRUN_A2A_RTOL * max(got, a2a),
+                      f"dryrun {a} {sh}: all-to-all bytes {got} against "
+                      f"torch 2.13's {a2a}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3108,6 +3135,12 @@ def dryrun_phase(device, lines: list, card: str) -> None:
                 rec["weighted"]["collective_bytes"].items()},
             table_gathers=rec["table_gathers"], trace_s=rec["trace_s"],
             traced=rec["traced"]))
+        if rec["shape"] == "train_4k":
+            dots, a2a = DRYRUN_TORCH213[rec["arch"]]
+            cells[-1].update(
+                dot_flops=rec["weighted"]["dot_flops"], dot_flops_213=dots,
+                all_to_all_bytes=rec["weighted"]["collective_bytes"][
+                    "all-to-all"], all_to_all_bytes_213=a2a)
     lines.append({"dryrun": dict(cells=cells, children_wall_s=wall,
                                  torch=torch.__version__, card=card)})
 

@@ -189,6 +189,8 @@ def _heads(x, w):
 
 def _project_q(p, x, cfg, positions, theta, *, rope=True):
     q = _heads(x, p["wq"])
+    if rope or cfg.qk_norm:
+        q = rules.relayout(q, "heads")
     if "bq" in p:
         q = q + p["bq"]
     if cfg.qk_norm:
@@ -200,6 +202,12 @@ def _project_q(p, x, cfg, positions, theta, *, rope=True):
 
 def _project_kv(p, x, cfg, positions, theta, *, rope=True):
     k, v = _heads(x, p["wk"]), _heads(x, p["wv"])
+    if rope or cfg.qk_norm:
+        # Q and K in their heads layout before the norm over each head and
+        # RoPE's halves of it (rules.relayout): a decode step's partial
+        # sums reduced into the batch split, gemma3's one K head made
+        # whole (its weight gradient then at full width)
+        k = rules.relayout(k, "heads")
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     if cfg.qk_norm:

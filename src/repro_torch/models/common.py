@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.sharding.rules import (constrain, grad_in_layout,
-                                       mesh_reshape, replicate)
+                                       mesh_reshape, reduce_partial,
+                                       relayout, replicate, rowwise)
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -107,6 +108,12 @@ def rmsnorm(x, params, eps):
 
 
 def rmsnorm_nobias(x, scale, eps):
+    # on a mesh each rank normalizes its own rows (rules.rowwise), so the
+    # backward takes one route on every torch version
+    return rowwise(lambda x, scale: _rmsnorm(x, scale, eps), x, scale)
+
+
+def _rmsnorm(x, scale, eps):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
@@ -159,7 +166,10 @@ def embed(tokens, params, cfg):
     x = torch.nn.functional.embedding(replicate(tokens),
                                       grad_in_layout(params["tok"]))
     if cfg.embed_scale:
-        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
+        # the rows summed before the scale, by one route on every torch
+        # version (rules.reduce_partial)
+        x = reduce_partial(x) * torch.tensor(np.sqrt(cfg.d_model),
+                                             dtype=x.dtype)
     return constrain(x, "hidden")
 
 
@@ -167,4 +177,9 @@ def unembed(x, embed_params, cfg, lm_head=None):
     """f32 logits, whatever the parameters' dtype."""
     w = (lm_head if lm_head is not None
          else grad_in_layout(embed_params["tok"]).T)
-    return softcap(dot_f32(x, w), cfg.logit_softcap)
+    logits = dot_f32(x, w)
+    if cfg.logit_softcap > 0.0:
+        # the product's partial sums reduced into the logits' layout before
+        # the cap, on every torch version (rules.relayout)
+        logits = relayout(logits, "logits")
+    return softcap(logits, cfg.logit_softcap)

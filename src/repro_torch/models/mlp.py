@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import constrain, relayout
 
 
 def init_mlp(cfg, generator, device, d_ff=None):
@@ -23,7 +23,9 @@ def mlp(p, x, cfg=None):
     """The gate and up products stay f32 through ``silu``, as JAX's; the
     down projection follows JAX's ``bf16_partial_reduce`` switch
     (:func:`repro_torch.models.common.matmul_reduce`)."""
-    g = cm.dot_f32(x, p["wi_gate"])
+    # a decode step's partial sums reduced into the "ffh" layout before
+    # silu, on every torch version (rules.relayout)
+    g = relayout(cm.dot_f32(x, p["wi_gate"]), "ffh")
     u = cm.dot_f32(x, p["wi_up"])
     h = constrain((F.silu(g) * u).to(x.dtype), "ffh")
     # on a mesh the down projection's sums over the model axis are

@@ -648,6 +648,139 @@ class _GradInLayout(torch.autograd.Function):
         return g.redistribute(g.device_mesh, ctx.placements)
 
 
+def rowwise(fn, x, *weights):
+    """``fn(x, *weights)`` for a function of each row of ``x`` alone (its
+    last dim read whole: a norm) and of replicated DTensor ``weights``.
+    On a device mesh each rank runs ``fn`` on its block of ``x``'s rows,
+    forward and backward (a ``shard_map`` body): the gradient keeps a
+    partial sum over a mesh dim that replicates ``x`` (the backward of a
+    norm is linear in it) and takes ``x``'s shards on the others; a
+    weight's gradient is partial over both kinds of dim.  This is the
+    route torch 2.13's DTensor takes on its own; 2.11 moves the rows'
+    gradient to a split of the last dim (an all-to-all of hidden states)
+    to sum a weight's gradient.  With no device mesh, on a plain tensor
+    or weight, or where ``x`` is partial or split along its last dim,
+    ``fn`` runs on ``x`` as it is."""
+    from torch.distributed.tensor import Shard
+    if (device_mesh() is None or not is_dtensor(x)
+            or not all(is_dtensor(w) for w in weights)
+            or any(p.is_partial() or (isinstance(p, Shard)
+                                      and p.dim % x.ndim == x.ndim - 1)
+                   for p in x.placements)):
+        return fn(x, *weights)
+    return _Rowwise.apply(fn, x, *weights)
+
+
+def _whole(w):
+    from torch.distributed.tensor import Replicate
+    return w.redistribute(w.device_mesh,
+                          [Replicate()] * w.device_mesh.ndim).to_local()
+
+
+class _Rowwise(torch.autograd.Function):
+    """:func:`rowwise` on each rank's block; the backward runs ``fn``'s
+    again on the block (saving only the inputs, as a remat unit does)."""
+
+    @staticmethod
+    def forward(ctx, fn, x, *weights):
+        from torch.distributed.tensor import DTensor
+        ctx.fn = fn
+        ctx.save_for_backward(x, *weights)
+        out = fn(x.to_local(), *(_whole(w) for w in weights))
+        return DTensor.from_local(out, x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        x, *weights = ctx.saved_tensors
+        mesh = x.device_mesh
+        want = tuple(gp if p == Replicate() and gp.is_partial() else p
+                     for p, gp in zip(x.placements, g.placements))
+        if tuple(g.placements) != want:
+            g = g.redistribute(mesh, want)
+        with torch.enable_grad():
+            xl = x.to_local().detach().requires_grad_()
+            wl = [_whole(w).detach().requires_grad_() for w in weights]
+            grads = torch.autograd.grad(ctx.fn(xl, *wl), [xl, *wl],
+                                        g.to_local(), allow_unused=True)
+        w_pl = tuple(Replicate() if p == Replicate() else Partial()
+                     for p in want)
+        # contiguous, as the DTensor made from it says it is
+        return (None, DTensor.from_local(
+            grads[0].contiguous(), mesh, want, run_check=False, shape=x.shape,
+            stride=x.stride()), *(
+            None if gw is None else DTensor.from_local(
+                gw, mesh, w_pl, run_check=False, shape=w.shape,
+                stride=w.stride()) for gw, w in zip(grads[1:], weights)))
+
+
+def relayout(x, rule: str):
+    """``x`` laid out by ``rule`` as :func:`constrain` lays it out, in the
+    forward pass only: the gradient passes back in the layout it arrives
+    in, as through an op's own redistribution of its inputs in DTensor
+    (where :func:`constrain`'s is redistributed to ``x``'s layout, or
+    made replicated for a partial ``x``).  Pins routes that DTensor's
+    costs choose differently by torch version, each the one 2.13 takes:
+    partial sums reduced into the rule's batch split before a nonlinear
+    op (gemma2's capped logits, which 2.11 all-reduces whole; a decode
+    step's Q, K and gate), and gemma3's one K head made whole before its
+    norm, so that K's weight gradient is taken at full width (2.11 keeps
+    it split over "model").  The identity where :func:`constrain` is."""
+    want = _rule_placements(x, rule)
+    if (want is None or tuple(x.placements) == want
+            or sum(p.is_partial() for p in x.placements) > 1):
+        # partial sums over two mesh dims (the multipod's "pod" and
+        # "data"): DTensor's own route reduces the larger dim first and
+        # the other on the reduced block, on both torch versions; no one
+        # redistribution into the rule's layout takes it
+        return x
+    return _ForwardLayouts.apply(x, want)
+
+
+def reduce_partial(x):
+    """``x`` with the partial sums of each mesh dim that holds them reduced
+    as a reduce-scatter and its all-gather, in the forward pass only (the
+    gradient passes back as through :func:`relayout`): the route torch
+    2.13's DTensor takes on its own for gemma's scaled lookup, where 2.11
+    all-reduces them at the next :func:`constrain`.  The scatter splits
+    the first dim that the mesh dim's ranks divide evenly, as DTensor
+    does.  The identity with no device mesh, on a plain tensor or on one
+    with no partial sums."""
+    from torch.distributed.tensor import Replicate, Shard
+    if device_mesh() is None or not is_dtensor(x):
+        return x
+    steps, at = [], list(x.placements)
+    local = x.to_local().shape
+    for i, p in enumerate(x.placements):
+        if not p.is_partial():
+            continue
+        dim = next((d for d, n in enumerate(local)
+                    if n % x.device_mesh.size(i) == 0), None)
+        for q in ([] if dim is None else [Shard(dim)]) + [Replicate()]:
+            at[i] = q
+            steps.append(tuple(at))
+    return _ForwardLayouts.apply(x, *steps) if steps else x
+
+
+class _ForwardLayouts(torch.autograd.Function):
+    """``t`` redistributed to each of ``layouts`` in turn, in the forward
+    pass only: the gradient passes back as it arrives (:func:`relayout`,
+    :func:`reduce_partial`)."""
+
+    @staticmethod
+    def forward(ctx, t, *layouts):
+        ctx.n = len(layouts)
+        for want in layouts:
+            t = t.redistribute(t.device_mesh, want)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + (None,) * ctx.n
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
@@ -658,13 +791,19 @@ def constrain(x, rule: str):
     DTensor is redistributed to the placements of its rule's spec.  The
     identity with no device mesh, on a world of one, or on a plain tensor
     (keeps model code mesh-agnostic: one device runs as it did)."""
-    mesh = device_mesh()
-    if mesh is None or not is_dtensor(x):
-        return x
-    prefs = _ACT_RULES[rule]
-    if len(prefs) != x.ndim:
-        return x
-    want = placements(assign_spec(x.shape, prefs, mesh), mesh)
-    if tuple(x.placements) == want:
+    want = _rule_placements(x, rule)
+    if want is None or tuple(x.placements) == want:
         return x
     return redistribute(x, want)
+
+
+def _rule_placements(x, rule: str):
+    """The placements ``rule`` gives ``x`` on the ambient device mesh, or
+    None where :func:`constrain` is the identity."""
+    mesh = device_mesh()
+    if mesh is None or not is_dtensor(x):
+        return None
+    prefs = _ACT_RULES[rule]
+    if len(prefs) != x.ndim:
+        return None
+    return placements(assign_spec(x.shape, prefs, mesh), mesh)
