@@ -46,7 +46,15 @@ the kernels' operation bounds use them) and then:
    ``serial``'s tree valid, sweeps equal, the scipy oracle), ``multisource``
    with 8 sources, the batched fixpoint through the ``relax_matmul``
    kernel, and one frontier-masked sweep; the serial / ``bellman_kernel``
-   wall ratio is the paper's headline comparison on this card;
+   wall ratio is the paper's headline comparison on this card.  The 16-bit
+   mode (:func:`dense_lowp_kernel_phase`, :func:`dense_lowp_engine_phase`):
+   the three kernels in bfloat16 and float16 on paper-sparse-40000's
+   matrix (3.2 GB) bitwise against their plain versions and timed, and on
+   an odd n (4099) bitwise; then, in its own launch window
+   (``dense_16bit``), ``sssp_bellman`` and ``sssp_multisource`` on the
+   bfloat16 matrix through the kernels and through the plain sweeps, dist,
+   pred, D and sweeps bitwise, one launch a sweep; one ``{"dense_16bit":
+   ...}`` line each, the gap to the float32 answers printed, not gated;
 6. the sharded engines (:func:`sharded_engines`), in their own launch
    window, on an NCCL group of one rank: on sparse-4M
    ``bellman_csr_sharded`` and ``frontier_sharded`` (and a ``target=``
@@ -164,7 +172,8 @@ shape, per engine run, per dynamic batch size, per serve trace, per obs
 pass, per driver run and per graph's (and the target query's and the
 dynamic phase's) kernel launches, one ``{"kernels": ...}`` line
 (``launches`` summed over the counted windows, ``launches_by_path``
-split), and last ``{"ok": true, "device": ...}``.
+split; each dense kernel's 16-bit rows under ``bfloat16`` and ``float16``
+and its ``launches_16bit``), and last ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before that line; so does a machine
 without a CUDA GPU.
 """
@@ -310,10 +319,12 @@ def bound_ms(nbytes: float, pairs: float) -> tuple[float, str]:
 
 
 def bitwise(a, b) -> bool:
+    """Same dtype, shape and bits (float32 or 16-bit floats)."""
     import torch
 
-    return torch.equal(a.contiguous().view(torch.int32),
-                       b.contiguous().view(torch.int32))
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(view),
+                                              b.contiguous().view(view))
 
 
 def max_abs_err(a, b) -> float:
@@ -583,12 +594,23 @@ def kernel_phase(graphs: dict, device, rng) -> tuple[dict, list]:
     return out, lines + more
 
 
-def dense_kernel_phase(g, device, rng) -> dict:
-    """The three min-plus kernels against their plain versions on
-    paper-sparse-40000's matrix.  The kernels skip rows whose label is INF
-    (for relax_matmul: INF for every source of the tile), so each bound
-    counts the rows the function needs.  No single PyTorch call computes a
-    dense min-plus product, so there is no library time."""
+def dense_inputs(n: int, rng, device, dtype=None) -> tuple:
+    """Labels with ~30% INF, a 50% frontier and SOURCES label rows, from
+    the seed, in ``dtype`` (float32 if None)."""
+    import torch
+
+    dist = mixed_dist(n, rng, device)
+    on = torch.tensor(rng.random(n) < 0.5, device=device)
+    D = torch.stack([mixed_dist(n, rng, device) for _ in range(SOURCES)])
+    if dtype is not None:
+        dist, D = dist.to(dtype), D.to(dtype)
+    return dist, on, D
+
+
+def dense_checks(adj, dist, on, D, what: str) -> dict:
+    """The three min-plus kernels bitwise against their plain versions
+    (relax_matvec_frontier also against the masked relax_matvec); returns
+    each kernel's largest error against its plain version."""
     import torch
 
     from repro_torch.kernels.sssp_relax.kernel import (relax_matmul,
@@ -598,54 +620,177 @@ def dense_kernel_phase(g, device, rng) -> dict:
                                                     relax_sweep_multi_ref,
                                                     relax_sweep_ref)
 
-    out = {}
-    n = g.n
-    adj = torch.tensor(g.adj, device=device)
-    dist = mixed_dist(n, rng, device)
-    shape = f"paper-sparse-{n} n={n}"
-
-    got, ref = relax_matvec(dist, adj), relax_sweep_ref(dist, adj)
-    check(bitwise(got, ref), "relax_matvec differs from relax_sweep_ref")
-    rows = int(torch.isfinite(dist).sum())
-    b, by = bound_ms(rows * n * 4 + 2 * n * 4, rows * n)
-    out["relax_matvec"] = dict(
-        shape=f"{shape} finite_rows={rows}", bitwise_equal_plain=True,
-        max_abs_err=max_abs_err(got, ref),
-        ms=time_ms(lambda: relax_matvec(dist, adj), KERNEL_REPS),
-        plain_ms=time_ms(lambda: relax_sweep_ref(dist, adj), PLAIN_REPS),
-        library_ms=None, bound_ms=b, bound_by=by)
-
-    on = torch.tensor(rng.random(n) < 0.5, device=device)
-    got = relax_matvec_frontier(dist, on, adj)
-    ref = relax_sweep_frontier_ref(dist, on, adj)
-    check(bitwise(got, ref),
-          "relax_matvec_frontier differs from relax_sweep_frontier_ref")
+    err = {}
+    for name, got, ref in (
+            ("relax_matvec", relax_matvec(dist, adj),
+             relax_sweep_ref(dist, adj)),
+            ("relax_matvec_frontier", relax_matvec_frontier(dist, on, adj),
+             relax_sweep_frontier_ref(dist, on, adj)),
+            ("relax_matmul", relax_matmul(D, adj),
+             relax_sweep_multi_ref(D, adj))):
+        check(bitwise(got, ref), f"{name} differs from its plain version "
+              f"({what})")
+        err[name] = max_abs_err(got, ref)
     masked = torch.where(on, dist, torch.inf)
-    check(bitwise(got, torch.minimum(dist, relax_matvec(masked, adj))),
-          "relax_matvec_frontier differs from the masked relax_matvec")
-    rows = int((on & torch.isfinite(dist)).sum())
-    b, by = bound_ms(rows * n * 4 + 2 * n * 4 + n, rows * n)
-    out["relax_matvec_frontier"] = dict(
-        shape=f"{shape} frontier={int(on.sum())} rows_read={rows}",
-        bitwise_equal_plain=True, max_abs_err=max_abs_err(got, ref),
-        ms=time_ms(lambda: relax_matvec_frontier(dist, on, adj), KERNEL_REPS),
-        plain_ms=time_ms(lambda: relax_sweep_frontier_ref(dist, on, adj),
-                         PLAIN_REPS),
-        library_ms=None, bound_ms=b, bound_by=by)
+    check(bitwise(relax_matvec_frontier(dist, on, adj),
+                  torch.minimum(dist, relax_matvec(masked, adj))),
+          f"relax_matvec_frontier differs from the masked relax_matvec "
+          f"({what})")
+    return err
 
-    D = torch.stack([mixed_dist(n, rng, device) for _ in range(SOURCES)])
-    got, ref = relax_matmul(D, adj), relax_sweep_multi_ref(D, adj)
-    check(bitwise(got, ref), "relax_matmul differs from relax_sweep_multi_ref")
+
+def dense_kernel_phase(g, device, rng, adj=None) -> dict:
+    """The three min-plus kernels against their plain versions on
+    paper-sparse-40000's matrix, in float32 or, given ``adj`` in 16 bits,
+    in its dtype.  The kernels skip rows whose label is INF (for
+    relax_matmul: INF for every source of the tile), so each bound counts
+    the rows the function needs, at the element's bytes.  No single
+    PyTorch call computes a dense min-plus product, so there is no library
+    time."""
+    import torch
+
+    from repro_torch.kernels.sssp_relax.kernel import (relax_matmul,
+                                                       relax_matvec,
+                                                       relax_matvec_frontier)
+    from repro_torch.kernels.sssp_relax.ref import (relax_sweep_frontier_ref,
+                                                    relax_sweep_multi_ref,
+                                                    relax_sweep_ref)
+
+    n = g.n
+    if adj is None:
+        adj = torch.tensor(g.adj, device=device)
+    dist, on, D = dense_inputs(n, rng, device, adj.dtype)
+    e = adj.element_size()
+    shape = f"paper-sparse-{n} n={n}"
+    if adj.dtype != torch.float32:
+        shape += f" {str(adj.dtype).removeprefix('torch.')}"
+    err = dense_checks(adj, dist, on, D, shape)
+
+    def row(name, fn, plain, nbytes, pairs, shape_):
+        b, by = bound_ms(nbytes, pairs)
+        return dict(shape=shape_, bitwise_equal_plain=True,
+                    max_abs_err=err[name], ms=time_ms(fn, KERNEL_REPS),
+                    plain_ms=time_ms(plain, PLAIN_REPS), library_ms=None,
+                    bound_ms=b, bound_by=by)
+
+    out = {}
+    rows = int(torch.isfinite(dist).sum())
+    out["relax_matvec"] = row(
+        "relax_matvec", lambda: relax_matvec(dist, adj),
+        lambda: relax_sweep_ref(dist, adj), rows * n * e + 2 * n * e,
+        rows * n, f"{shape} finite_rows={rows}")
+    rows = int((on & torch.isfinite(dist)).sum())
+    out["relax_matvec_frontier"] = row(
+        "relax_matvec_frontier", lambda: relax_matvec_frontier(dist, on, adj),
+        lambda: relax_sweep_frontier_ref(dist, on, adj),
+        rows * n * e + 2 * n * e + n, rows * n,
+        f"{shape} frontier={int(on.sum())} rows_read={rows}")
     rows = int(torch.isfinite(D).any(dim=0).sum())
-    b, by = bound_ms(rows * n * 4 + 2 * SOURCES * n * 4,
-                     SOURCES * rows * n)
-    out["relax_matmul"] = dict(
-        shape=f"{shape} S={SOURCES} rows_read={rows}",
-        bitwise_equal_plain=True, max_abs_err=max_abs_err(got, ref),
-        ms=time_ms(lambda: relax_matmul(D, adj), KERNEL_REPS),
-        plain_ms=time_ms(lambda: relax_sweep_multi_ref(D, adj), PLAIN_REPS),
-        library_ms=None, bound_ms=b, bound_by=by)
+    out["relax_matmul"] = row(
+        "relax_matmul", lambda: relax_matmul(D, adj),
+        lambda: relax_sweep_multi_ref(D, adj),
+        rows * n * e + 2 * SOURCES * n * e, SOURCES * rows * n,
+        f"{shape} S={SOURCES} rows_read={rows}")
     return out
+
+
+#: the 16-bit dense mode: its dtypes (each matrix 3.2 GB at n = 40,000), the
+#: one it runs the fixpoints in, and an odd n whose 16-bit rows start on
+#: every other 2-byte boundary
+DENSE_LOWP = ("bfloat16", "float16")
+DENSE_LOWP_ENGINES = "bfloat16"
+DENSE_ODD_N = 4099
+
+
+def dense_lowp_kernel_phase(g, device, rng) -> tuple[dict, dict, object]:
+    """The three min-plus kernels in bfloat16 and float16 on
+    paper-sparse-40000's matrix (:func:`dense_kernel_phase`: bitwise and
+    timed) and, bitwise only, on an odd-n matrix.  Returns the rows by
+    dtype and kernel, one line of what was held, and the matrix in
+    DENSE_LOWP_ENGINES for :func:`dense_lowp_engine_phase`."""
+    import torch
+
+    from repro_torch.core import graph as G
+
+    full = torch.tensor(g.adj, device=device)
+    odd = G.sparse_graph(DENSE_ODD_N, seed=1)
+    odd_adj = torch.tensor(odd.adj, device=device)
+    rows, keep = {}, None
+    for name in DENSE_LOWP:
+        dtype = getattr(torch, name)
+        adj = full.to(dtype)
+        rows[name] = dense_kernel_phase(g, device, rng, adj=adj)
+        dist, on, D = dense_inputs(odd.n, rng, device, dtype)
+        dense_checks(odd_adj.to(dtype), dist, on, D,
+                     f"sparse-{odd.n} {name}")
+        if name == DENSE_LOWP_ENGINES:
+            keep = adj
+        del adj
+    line = dict(dense_16bit="kernels", dtypes=list(DENSE_LOWP),
+                bitwise_equal_plain_at=[g.n, odd.n], sources=SOURCES,
+                frontier=0.5)
+    return rows, line, keep
+
+
+def dense_lowp_engine_phase(adj, g, device, rng, ref: dict) -> dict:
+    """sssp_bellman and sssp_multisource (SOURCES sources) with the 16-bit
+    matrix ``adj`` through the kernel sweeps and through the plain sweeps
+    on the card: dist, pred, D and sweeps bitwise equal; one
+    frontier-masked kernel sweep at the fixpoint moves nothing.  Returns
+    one line with the walls, the sweeps and the largest gap to the float32
+    answers ``ref`` (dense_engine_phase's ``refs`` of the graph): what 16
+    bits cost in exactness, information and not a check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.bellman import sssp_bellman
+    from repro_torch.core.multisource import sssp_multisource
+    from repro_torch.kernels.sssp_relax.ops import (make_sweep_fn,
+                                                    relax_sweep,
+                                                    relax_sweep_multi)
+
+    def solve(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    what = f"paper-sparse-{g.n} {str(adj.dtype).removeprefix('torch.')}"
+    (kd, kp, ks), kwall = solve(lambda: sssp_bellman(
+        adj, 0, sweep_fn=make_sweep_fn()))
+    (pd, pp, ps), pwall = solve(lambda: sssp_bellman(adj, 0))
+    check(bitwise(kd, pd) and torch.equal(kp, pp) and ks == ps,
+          f"{what}: sssp_bellman through the kernel differs from the plain "
+          f"sweep")
+    sources = torch.tensor(np.arange(SOURCES) * (g.n // SOURCES),
+                           device=device)
+    (KD, kms), kmwall = solve(lambda: sssp_multisource(
+        adj, sources, sweep_fn=relax_sweep_multi))
+    (PD, pms), pmwall = solve(lambda: sssp_multisource(adj, sources))
+    check(bitwise(KD, PD) and kms == pms,
+          f"{what}: sssp_multisource through the kernel differs from the "
+          f"plain sweep")
+    on = torch.tensor(rng.random(g.n) < 0.5, device=device)
+    check(bitwise(relax_sweep(kd, adj, on, frontier_mode=True), kd),
+          f"{what}: the frontier-masked sweep moved the fixpoint")
+    f32 = torch.tensor(ref["bellman"].dist, device=device)
+    F32 = torch.tensor(ref["multisource"].dist, device=device)
+    return dict(dense_16bit="engines", graph=f"paper-sparse-{g.n}",
+                dtype=str(adj.dtype).removeprefix("torch."),
+                bitwise_equal_plain=True,
+                bellman_kernel_s=kwall, bellman_plain_s=pwall, sweeps=ks,
+                f32_sweeps=ref["bellman"].sweeps,
+                multisource_kernel_s=kmwall, multisource_plain_s=pmwall,
+                multisource_sweeps=kms,
+                f32_multisource_sweeps=ref["multisource"].sweeps,
+                max_abs_gap_to_f32=max_abs_err(kd.float(), f32),
+                multisource_max_abs_gap_to_f32=max_abs_err(KD.float(), F32),
+                max_rel_gap_to_f32=float(
+                    ((kd.float() - f32).abs() / f32.clamp(min=1.0))
+                    [torch.isfinite(f32)].max()),
+                pred_equal_f32=bool(torch.equal(
+                    kp.cpu(), torch.tensor(ref["bellman"].pred))))
 
 
 #: scipy's Dijkstra for the (graph, sources) pairs known once the graphs
@@ -3300,6 +3445,13 @@ def main() -> int:
         t0 = time.perf_counter()
         kern.update(dense_kernel_phase(dense[big], device, rng))
         dense_s = {"dense_kernel_phase_s": time.perf_counter() - t0}
+        # the 16-bit mode: kernels held and timed here, the fixpoints in
+        # their own window below
+        t0 = time.perf_counter()
+        kern16, line16, adj16 = dense_lowp_kernel_phase(dense[big], device,
+                                                        rng)
+        lines.append(line16)
+        CLOCK["dense_16bit"] = time.perf_counter() - t0
         torch.cuda.synchronize()
         for fn in wrappers.values():
             fn.launches = 0
@@ -3321,6 +3473,25 @@ def main() -> int:
         launches = {k: fn.launches for k, fn in wrappers.items()}
         for k, cnt in launches.items():
             check(cnt > 0, f"kernel {k} was not launched on the main path")
+        # the dense fixpoints on the 16-bit matrix: their own window, in
+        # which every launch is a 16-bit one
+        t0 = time.perf_counter()
+        for fn in wrappers.values():
+            fn.launches = 0
+        line16 = dense_lowp_engine_phase(adj16, dense[big], device, rng,
+                                         refs[big])
+        torch.cuda.synchronize()
+        dense16 = {k: fn.launches for k, fn in wrappers.items()}
+        check(dense16["relax_matvec"] == line16["sweeps"]
+              and dense16["relax_matmul"] == line16["multisource_sweeps"]
+              and dense16["relax_matvec_frontier"] == 1
+              and sum(dense16.values()) == line16["sweeps"]
+              + line16["multisource_sweeps"] + 1,
+              f"the 16-bit fixpoints launched {dense16}, not one kernel "
+              f"launch a sweep")
+        lines.append(dict(line16, launches=dense16))
+        del adj16
+        CLOCK["dense_16bit"] += time.perf_counter() - t0
         lines.append(clocked("serial", lambda: serial_check(device)))
         # road-4M's ≈ 4000-sweep solves leave traces whose processing took
         # ≈ 1 min of the run: its idle shares stand in PERF.md §5
@@ -3423,21 +3594,27 @@ def main() -> int:
 
     for line in lines:
         print(json.dumps(line))
+    # each dense kernel's 16-bit rows under its dtype's name
+    kern16_by_kernel = {k: {name: rows[k] for name, rows in kern16.items()}
+                        for k in kern16[DENSE_LOWP_ENGINES]}
     CLOCK["total"] = time.perf_counter() - T0
     print(json.dumps({"clock_s": CLOCK}))
     print(json.dumps({"kernel_modes": modes}))
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNELS[k][0],
              replaces=KERNELS[k][1],
-             launches=(launches[k] + sharded[k] + served[k]
+             launches=(launches[k] + dense16[k] + sharded[k] + served[k]
                        + sharded_serve[k]
                        + sum(w[k] for w in windows.values())),
              launches_by_path={"csr_dynamic_dense": launches[k],
+                               "dense_16bit": dense16[k],
                                "sharded": sharded[k],
                                "serve": served[k],
                                "sharded_serve": sharded_serve[k],
                                **{path: w[k] for path, w in windows.items()}},
-             **kern[k])
+             **kern[k],
+             **({"launches_16bit": {DENSE_LOWP_ENGINES: dense16[k]},
+                 **kern16_by_kernel[k]} if k in kern16_by_kernel else {}))
         for k in KERNELS]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

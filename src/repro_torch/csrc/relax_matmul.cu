@@ -7,19 +7,21 @@
 //
 //     out[s, v] = min(D[s, v], min_u D[s, u] + adj[u, v])
 //
-// D and out are (S, n) float32, adj (n, n) float32, all row-major.
-// ``out`` starts as a copy of D (the wrapper clones it); the kernel only
-// reads the snapshot D.
+// D and out are (S, n), adj (n, n), all row-major and of one element
+// type, float32, bfloat16 or float16 (one C entry each), with float32
+// arithmetic (min_plus_types.cuh says why a 16-bit sweep rounded once at
+// the end equals the plain version).  ``out`` starts as a copy of D (the
+// wrapper clones it); the kernel only reads the snapshot D.
 //
 // The TPU kernel walked u as a sequential grid axis.  Here the u range is
 // split across blocks and the partial minima are combined with an
-// atomicMin on the int32 bit pattern of out[s, v], exact for labels and
+// atomic min on the bit pattern of out[s, v], exact for labels and
 // weights that are +0, positive or +inf (see relax_matvec.cu), so the
 // result is bitwise equal to the plain version's.
 //
 // Bound on the H100: memory bytes while S is small.  adj is streamed
-// once per tile of 8 sources (4n² bytes at S <= 8), D read and out
-// written (8Sn bytes).  Each adj element costs S adds and S mins; at
+// once per tile of 8 sources (n² elements of 4 or 2 bytes at S <= 8), D
+// read and out written (2Sn elements).  Each adj element costs S adds and S mins; at
 // S = 8 that is below the byte time at the card's add and min issue rates
 // (PERF.md section 6 gives the rate measured by tools/min_plus_rate.py).
 // A row u whose D[s, u] is +inf for every source of the tile contributes
@@ -31,11 +33,12 @@
 // - D is staged transposed in shared memory, a tile of 256 u rows at a
 //   time: row i holds the tile's 8 source labels of one u, read as two
 //   broadcast 16-byte loads (float4).
-// - Each thread owns 4 consecutive columns, read as one 16-byte adj load,
-//   so each D fetch serves 4 elements: 8 × 4 accumulators in registers.
-//   Rows are 16-byte aligned only when n % 4 == 0 (all of the paper's
-//   sizes); for other n the same kernel reads the 4 columns with 4 scalar
-//   loads, the columns past n masked, not padded.
+// - Each thread owns 4 consecutive columns, read as one 16-byte adj load
+//   (8 bytes for 16-bit elements, widened in registers), so each D fetch
+//   serves 4 elements: 8 × 4 accumulators in registers.  Rows are so
+//   aligned only when n % 4 == 0 (all of the paper's sizes); for other n
+//   the same kernel reads the 4 columns with 4 scalar loads, the columns
+//   past n masked, not padded.
 // - The tile's live rows (some source finite) are compacted into a list
 //   by a block prefix count (a ballot a warp, the warps' counts in shared
 //   memory), so the inner loop has no branch a row.
@@ -43,8 +46,9 @@
 //   ring of 4 slots of its own in shared memory with cp.async, so 3 rows
 //   are on their way while it folds one, without registers to hold them
 //   (tools/relax_matmul_sweep.py times other depths; PERF.md section 6).
-//   (The scalar path, and a build with RELAX_MATMUL_STAGES=0, read 4 rows
-//   into registers before folding them.)
+//   (The scalar path, the 16-bit elements, and a build with
+//   RELAX_MATMUL_STAGES=0, read 4 rows into registers before folding
+//   them.)
 // - The work is a list of items, (source tile, block of 1024 columns,
 //   tile of 256 u rows), cut into equal contiguous ranges, one a block,
 //   with as many blocks as the card holds at once.  A block folds its
@@ -56,6 +60,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "min_plus_types.cuh"
 
 // tools/relax_matmul_sweep.py builds variants with other depths (0: no
 // cp.async) to measure what the ring buys
@@ -94,18 +100,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// adj[row, v0 .. v0 + 3], +inf past column n
-template <bool kVec>
-__device__ __forceinline__ float4 load4(const float* __restrict__ p,
+// adj[row, v0 .. v0 + 3] widened to float32, +inf past column n
+template <bool kVec, typename T>
+__device__ __forceinline__ float4 load4(const T* __restrict__ p,
                                         long long v0, long long n) {
-  if constexpr (kVec) {
+  if constexpr (kVec && sizeof(T) == 4) {
     return __ldg(reinterpret_cast<const float4*>(p));
+  } else if constexpr (kVec) {
+    return min_plus::widen4(__ldg(reinterpret_cast<const uint2*>(p)), T{});
   } else {
     const float inf = __int_as_float(0x7f800000);
-    return make_float4(v0 < n ? __ldg(p) : inf,
-                       v0 + 1 < n ? __ldg(p + 1) : inf,
-                       v0 + 2 < n ? __ldg(p + 2) : inf,
-                       v0 + 3 < n ? __ldg(p + 3) : inf);
+    return make_float4(v0 < n ? min_plus::load(p) : inf,
+                       v0 + 1 < n ? min_plus::load(p + 1) : inf,
+                       v0 + 2 < n ? min_plus::load(p + 2) : inf,
+                       v0 + 3 < n ? min_plus::load(p + 3) : inf);
   }
 }
 
@@ -130,7 +138,8 @@ __device__ __forceinline__ void fold_row(float (&acc)[kS][kC], float4 da,
 
 // out[s0 + s, v0 + c] = min(out[...], acc[s][c]) for the sources and
 // columns in range
-__device__ __forceinline__ void combine(float (&acc)[kS][kC], float* out,
+template <typename T>
+__device__ __forceinline__ void combine(float (&acc)[kS][kC], T* out,
                                         long long s0, long long v0,
                                         long long S, long long n) {
 #pragma unroll
@@ -138,25 +147,23 @@ __device__ __forceinline__ void combine(float (&acc)[kS][kC], float* out,
     if (s0 + s >= S) break;
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
-      if (v0 + c < n) {
-        float* o = out + (s0 + s) * n + v0 + c;
-        if (acc[s][c] < *o)
-          atomicMin(reinterpret_cast<int*>(o), __float_as_int(acc[s][c]));
-      }
+      if (v0 + c < n) min_plus::atomic_min(out + (s0 + s) * n + v0 + c,
+                                           acc[s][c]);
     }
   }
 }
 
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    relax_matmul_kernel(const float* __restrict__ D,
-                        const float* __restrict__ adj, float* out,
-                        long long S, long long n, long long vblocks,
+    relax_matmul_kernel(const T* __restrict__ D, const T* __restrict__ adj,
+                        T* out, long long S, long long n, long long vblocks,
                         long long utiles, long long items) {
+  // the cp.async ring streams 16-byte float32 rows only
+  constexpr bool kAsync = kVec && kStages > 0 && sizeof(T) == 4;
   __shared__ float4 sD[kThreads][2];          // live row i: its 8 labels
   __shared__ int sRow[kThreads];              // live row i: u - u0
   __shared__ int sCount[kWarps];              // live rows a warp
-  __shared__ float4 ring[kRing][kThreads];
+  __shared__ float4 ring[kAsync ? kRing : 1][kThreads];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const float kInf = __int_as_float(0x7f800000);
@@ -187,7 +194,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int s = 0; s < kS; ++s) {
       const long long u = u0 + threadIdx.x;
-      d[s] = u < n && s0 + s < S ? D[(s0 + s) * n + u] : kInf;
+      d[s] = u < n && s0 + s < S ? min_plus::widen(D[(s0 + s) * n + u])
+                                 : kInf;
       live |= d[s] != kInf;
     }
     const unsigned ballot = __ballot_sync(kFull, live);
@@ -210,8 +218,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (v0 >= n) continue;
 
-    const float* a = adj + u0 * n + v0;
-    if constexpr (kVec && kStages > 0) {
+    const T* a = adj + u0 * n + v0;
+    if constexpr (kAsync) {
       // this thread's ring of kStages adj rows in flight: slot k of it is
       // mine[k * kThreads]; only this thread writes and reads it
       float4* mine = &ring[0][threadIdx.x];
@@ -266,12 +274,12 @@ cudaError_t resident_blocks(Kernel kernel, long long* out) {
   return e;
 }
 
-template <bool kVec>
-int launch(const float* D, const float* adj, float* out, long long S,
-           long long n, cudaStream_t stream) {
+template <typename T, bool kVec>
+int launch(const T* D, const T* adj, T* out, long long S, long long n,
+           cudaStream_t stream) {
   static long long resident = 0;              // queried once, then kept
   if (resident == 0) {
-    const cudaError_t e = resident_blocks(relax_matmul_kernel<kVec>,
+    const cudaError_t e = resident_blocks(relax_matmul_kernel<T, kVec>,
                                           &resident);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -279,10 +287,22 @@ int launch(const float* D, const float* adj, float* out, long long S,
   const long long utiles = (n + kThreads - 1) / kThreads;
   const long long items = (S + kS - 1) / kS * vblocks * utiles;
   const long long blocks = items < resident ? items : resident;
-  relax_matmul_kernel<kVec><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              stream>>>(D, adj, out, S, n, vblocks, utiles,
-                                        items);
+  relax_matmul_kernel<T, kVec><<<static_cast<unsigned>(blocks), kThreads,
+                                 0, stream>>>(D, adj, out, S, n, vblocks,
+                                              utiles, items);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const T* D, const T* adj, T* out, long long S, long long n,
+             void* stream) {
+  if (n <= 0 || S <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  // the kC-column adj loads need every row aligned to kC elements
+  if (n % kC == 0 && reinterpret_cast<std::uintptr_t>(adj) %
+                         (kC * sizeof(T)) == 0)
+    return launch<T, true>(D, adj, out, S, n, s);
+  return launch<T, false>(D, adj, out, S, n, s);
 }
 
 }  // namespace
@@ -290,10 +310,18 @@ int launch(const float* D, const float* adj, float* out, long long S,
 extern "C" int relax_matmul_launch(const float* D, const float* adj,
                                    float* out, long long S, long long n,
                                    void* stream) {
-  if (n <= 0 || S <= 0) return 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  // 16-byte adj loads need every row 16-byte aligned
-  if (n % kC == 0 && reinterpret_cast<std::uintptr_t>(adj) % 16 == 0)
-    return launch<true>(D, adj, out, S, n, s);
-  return launch<false>(D, adj, out, S, n, s);
+  return dispatch(D, adj, out, S, n, stream);
+}
+
+extern "C" int relax_matmul_bf16_launch(const __nv_bfloat16* D,
+                                        const __nv_bfloat16* adj,
+                                        __nv_bfloat16* out, long long S,
+                                        long long n, void* stream) {
+  return dispatch(D, adj, out, S, n, stream);
+}
+
+extern "C" int relax_matmul_f16_launch(const __half* D, const __half* adj,
+                                       __half* out, long long S, long long n,
+                                       void* stream) {
+  return dispatch(D, adj, out, S, n, stream);
 }

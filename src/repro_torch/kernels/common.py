@@ -9,7 +9,9 @@ the other.
 
 Each kernel is one CUDA C++ source ``csrc/<name>.cu`` (which may include
 the ``csrc/*.cuh`` headers) with a plain C entry ``<name>_launch`` that
-returns ``cudaGetLastError()``.  It is compiled with ``nvcc`` for
+returns ``cudaGetLastError()`` (the dense min-plus kernels have one entry
+an element type: ``<name>_launch``, ``<name>_bf16_launch`` and
+``<name>_f16_launch``).  It is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` at the repository root, on first use,
 under a name keyed by a hash of the sources and the flags, and loaded with
 ``ctypes``.  Nothing is compiled at import time.
@@ -33,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 INT32_MAX = 2**31 - 1
+#: element types of the dense min-plus kernels, labels and matrix alike
+DENSE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -63,6 +67,19 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_dense(labels: torch.Tensor, name: str, shape: tuple,
+                adj: torch.Tensor) -> None:
+    """Raise unless ``labels`` has this shape, ``adj`` is (n, n) with n
+    the last dimension of ``shape``, both are contiguous and both have one
+    dtype of ``DENSE_DTYPES``, the same one (every dense engine takes its
+    labels' dtype from the matrix, so no caller mixes them)."""
+    if labels.dtype not in DENSE_DTYPES:
+        raise TypeError(f"{name} must be one of {DENSE_DTYPES}, "
+                        f"got {labels.dtype}")
+    check(labels, name, labels.dtype, shape)
+    check(adj, "adj", labels.dtype, (shape[-1], shape[-1]))
 
 
 def check_csr(dist: torch.Tensor, indptr: torch.Tensor,
@@ -142,11 +159,13 @@ def build(names) -> None:
 
 
 @functools.cache
-def launcher(name: str, argtypes: tuple):
-    """The C entry ``<name>_launch`` of kernel ``name``, built if needed,
-    with its ``ctypes`` signature (pointers and the stream as ``c_void_p``)."""
+def launcher(name: str, argtypes: tuple, entry: str | None = None):
+    """The C entry ``<entry>_launch`` (``entry`` defaults to ``name``) of
+    kernel ``name``, built if needed, with its ``ctypes`` signature
+    (pointers and the stream as ``c_void_p``)."""
     build([name])
-    fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_launch")
+    fn = getattr(ctypes.CDLL(str(library_path(name))),
+                 f"{entry or name}_launch")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

@@ -7,12 +7,17 @@ and how its design answers that).
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version (ref.py) on CPU tensors, and counts the kernel's launches in
-``<wrapper>.launches``.  Unlike the TPU kernels, which returned the pure
-relaxation term, the kernels fold in the self-distance ``min(dist, ·)``
-that the JAX ops wrappers applied, so their outputs are whole sweeps.
-Labels and weights must be nonnegative: the kernels combine partial
-minima with an atomicMin on float bit patterns read as int32, which
-orders them only from +0 up to +inf.
+``<wrapper>.launches``, whatever the dtype.  Labels and matrix share one
+dtype, float32, bfloat16 or float16 (``common.DENSE_DTYPES``), as the
+Pallas kernels take any float dtype and give ``dist.dtype``; each kernel
+has one C entry a dtype, with float32 arithmetic and one rounding of each
+minimum to 16 bits, which equals the plain version's 16-bit sums
+(``csrc/min_plus_types.cuh``).  Unlike the TPU kernels, which returned the
+pure relaxation term, the kernels fold in the self-distance ``min(dist,
+·)`` that the JAX ops wrappers applied, so their outputs are whole
+sweeps.  Labels and weights must be nonnegative: the kernels combine
+partial minima with an atomic min on bit patterns, which orders them only
+from +0 up to +inf.
 """
 from __future__ import annotations
 
@@ -26,20 +31,26 @@ from repro_torch.kernels.sssp_relax.ref import (relax_sweep_frontier_ref,
                                                 relax_sweep_ref)
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
+#: the C entry of each dtype: ``<kernel><suffix>_launch``
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
+
+
+def _entry(name: str, dtype: torch.dtype, argtypes: tuple):
+    return common.launcher(name, argtypes, name + _SUFFIX[dtype])
 
 
 def relax_matvec(dist: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
     """``min(dist[v], min_u dist[u] + adj[u, v])`` for every v, into a new
-    tensor.  dist f32 (n,), adj f32 (n, n), both contiguous."""
+    tensor.  dist (n,), adj (n, n), both contiguous and of one dtype of
+    ``common.DENSE_DTYPES``."""
     n = adj.shape[0]
-    common.check(dist, "dist", torch.float32, (n,))
-    common.check(adj, "adj", torch.float32, (n, n))
+    common.check_dense(dist, "dist", (n,), adj)
     if not common.on_cuda(dist, adj):
         return relax_sweep_ref(dist, adj)
     out = dist.clone()
     if n == 0:
         return out
-    rc = common.launcher("relax_matvec", (_P, _P, _P, _I64, _P))(
+    rc = _entry("relax_matvec", dist.dtype, (_P, _P, _P, _I64, _P))(
         dist.data_ptr(), adj.data_ptr(), out.data_ptr(), n,
         common.stream(dist))
     common.raise_on_error(rc, "relax_matvec")
@@ -50,18 +61,18 @@ def relax_matvec(dist: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
 def relax_matvec_frontier(dist: torch.Tensor, frontier: torch.Tensor,
                           adj: torch.Tensor) -> torch.Tensor:
     """``min(dist[v], min_{u: frontier[u]} dist[u] + adj[u, v])`` for every
-    v, into a new tensor.  dist f32 (n,), frontier bool (n,), adj f32
-    (n, n), all contiguous."""
+    v, into a new tensor.  dist (n,), frontier bool (n,), adj (n, n), all
+    contiguous; dist and adj of one dtype of ``common.DENSE_DTYPES``."""
     n = adj.shape[0]
-    common.check(dist, "dist", torch.float32, (n,))
+    common.check_dense(dist, "dist", (n,), adj)
     common.check(frontier, "frontier", torch.bool, (n,))
-    common.check(adj, "adj", torch.float32, (n, n))
     if not common.on_cuda(dist, frontier, adj):
         return relax_sweep_frontier_ref(dist, frontier, adj)
     out = dist.clone()
     if n == 0:
         return out
-    rc = common.launcher("relax_matvec_frontier", (_P, _P, _P, _P, _I64, _P))(
+    rc = _entry("relax_matvec_frontier", dist.dtype,
+                (_P, _P, _P, _P, _I64, _P))(
         dist.data_ptr(), frontier.data_ptr(), adj.data_ptr(), out.data_ptr(),
         n, common.stream(dist))
     common.raise_on_error(rc, "relax_matvec_frontier")
@@ -71,17 +82,17 @@ def relax_matvec_frontier(dist: torch.Tensor, frontier: torch.Tensor,
 
 def relax_matmul(D: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
     """``min(D[s, v], min_u D[s, u] + adj[u, v])`` for every (s, v), into a
-    new tensor.  D f32 (S, n), adj f32 (n, n), both contiguous."""
+    new tensor.  D (S, n), adj (n, n), both contiguous and of one dtype of
+    ``common.DENSE_DTYPES``."""
     n = adj.shape[0]
     S = D.shape[0]
-    common.check(D, "D", torch.float32, (S, n))
-    common.check(adj, "adj", torch.float32, (n, n))
+    common.check_dense(D, "D", (S, n), adj)
     if not common.on_cuda(D, adj):
         return relax_sweep_multi_ref(D, adj)
     out = D.clone()
     if out.numel() == 0:
         return out
-    rc = common.launcher("relax_matmul", (_P, _P, _P, _I64, _I64, _P))(
+    rc = _entry("relax_matmul", D.dtype, (_P, _P, _P, _I64, _I64, _P))(
         D.data_ptr(), adj.data_ptr(), out.data_ptr(), S, n,
         common.stream(D))
     common.raise_on_error(rc, "relax_matmul")

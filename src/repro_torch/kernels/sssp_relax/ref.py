@@ -2,7 +2,10 @@
 
 Min-plus is exact in f32 (adds and compares only; min does not depend on
 order), so the CUDA kernels must agree with these bitwise, and so must any
-blocking of the contraction over u.  The candidate tensor is built one
+blocking of the contraction over u.  In bfloat16 or float16 each sum here
+is rounded to 16 bits before the min; the kernels add and take the min in
+float32 and round the minimum once, which gives the same bits (rounding is
+monotone), so they agree bitwise in 16 bits too.  The candidate tensor is built one
 block of u rows at a time, so a sweep at n = 40,000 (a 6.4 GB matrix)
 never holds more than ``_BLOCK_ELEMS`` candidates at once.
 """

@@ -3,7 +3,10 @@ bitwise, and the kernel engines on the GPU against the CPU path.  The
 dense kernels run at n in {1, 37, 255, 4097} and S in {1, 3, 8, 9}, and
 relax_matmul also at n = 1025 to 1028 (every residue mod 4) and S in
 {1, 7, 8, 9, 17} with all-INF rows and tiles, so ragged tails, u-split
-boundaries and ragged source tiles are covered; the CSR pull kernels and
+boundaries and ragged source tiles are covered, all of it also in
+bfloat16 and float16 (float16 also with sums past its largest finite
+value), and the bfloat16 fixpoints through the kernels against the plain
+sweeps; the CSR pull kernels and
 the frontier push at every lane-group width, on graphs with rows that
 their whole-warp path takes.  The LMs' smoke configs on the card against
 the CPU, f32 without TF32, within 1e-4: forward, logits, prefill + decode
@@ -50,7 +53,8 @@ def cuda():
 
 
 def _bits(a, b):
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
 def _dist(n, seed, device):
@@ -223,6 +227,100 @@ def test_relax_matmul_ragged_columns_sources_and_inf_tiles(cuda, n):
     assert _bits(relax_matmul(torch.full((9, n), torch.inf, device=cuda),
                               adj), torch.full((9, n), torch.inf,
                                                device=cuda))
+
+
+LOWP = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", LOWP, ids=["bf16", "f16"])
+@pytest.mark.parametrize("n", [1, 37, 255, 4097, 1025, 1026, 1027, 1028])
+def test_dense_kernels_16bit_bitwise_vs_plain(cuda, n, dtype):
+    """The 16-bit instantiations of the three kernels against their plain
+    versions (each sum rounded to 16 bits): odd n (rows 2-byte aligned),
+    every residue of n mod 4 for relax_matmul's 8-byte loads, ragged
+    source tiles, INF rows; each call counts one launch."""
+    adj = torch.tensor(TG.random_graph(n, 4 * n, seed=n).adj,
+                       device=cuda).to(dtype)
+    d = _dist(n, n, cuda).to(dtype)
+    counts = (relax_matvec.launches, relax_matvec_frontier.launches,
+              relax_matmul.launches)
+    assert _bits(relax_matvec(d, adj), relax_sweep_ref(d, adj))
+    on = torch.tensor(np.random.default_rng(n).random(n) < 0.5, device=cuda)
+    got = relax_matvec_frontier(d, on, adj)
+    assert _bits(got, relax_sweep_frontier_ref(d, on, adj))
+    for S in (1, 3, 8, 9, 17):
+        D = torch.stack([_dist(n, n + s, cuda) for s in range(S)]).to(dtype)
+        D[:, :n // 4] = torch.inf
+        assert _bits(relax_matmul(D, adj), relax_sweep_multi_ref(D, adj))
+    assert (relax_matvec.launches, relax_matvec_frontier.launches,
+            relax_matmul.launches) == (counts[0] + 1, counts[1] + 1,
+                                       counts[2] + 5)
+
+
+def test_kernel_wrappers_launch_on_bf16_cuda_tensors(cuda):
+    """A bfloat16 CUDA tensor launches each dense kernel once: the
+    wrappers take 16-bit labels and matrix, and nothing falls back."""
+    n = 300
+    adj = torch.tensor(TG.random_graph(n, 4 * n, seed=1).adj,
+                       device=cuda).to(torch.bfloat16)
+    d = _dist(n, 1, cuda).to(torch.bfloat16)
+    on = torch.arange(n, device=cuda) % 2 == 0
+    for fn, args in ((relax_matvec, (d, adj)),
+                     (relax_matvec_frontier, (d, on, adj)),
+                     (relax_matmul, (torch.stack([d, d]), adj))):
+        before = fn.launches
+        assert fn(*args).dtype == torch.bfloat16
+        assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize("scale", [1.0, 20.0])
+@pytest.mark.parametrize("n", [255, 4097])
+def test_dense_kernels_f16_overflow_to_inf(cuda, n, scale):
+    """float16 labels near its largest finite value (65504): sums from
+    65520 up round to +inf, in the kernels as in the plain versions.  At
+    20x weights every sum past a finite label overflows, so a vertex whose
+    label is INF keeps it although its float32 minimum is finite."""
+    adj = (torch.tensor(TG.random_graph(n, 4 * n, seed=n).adj, device=cuda)
+           * scale).to(torch.float16)
+    d = (64000.0 + _dist(n, n, cuda) * 1.5).to(torch.float16)
+    ref = relax_sweep_ref(d, adj)
+    if scale > 1:
+        cand = (d.float()[:, None] + adj.float()).amin(dim=0)
+        assert (torch.isinf(d) & torch.isinf(ref) & torch.isfinite(cand)).any()
+    assert _bits(relax_matvec(d, adj), ref)
+    on = torch.tensor(np.random.default_rng(n).random(n) < 0.5, device=cuda)
+    assert _bits(relax_matvec_frontier(d, on, adj),
+                 relax_sweep_frontier_ref(d, on, adj))
+    D = torch.stack([d, d.flip(0), d.roll(7)])
+    assert _bits(relax_matmul(D, adj), relax_sweep_multi_ref(D, adj))
+
+
+@pytest.mark.parametrize("dtype", LOWP, ids=["bf16", "f16"])
+def test_dense_fixpoints_16bit_kernel_sweep_vs_plain(cuda, dtype):
+    """sssp_bellman (also with use_frontier) and sssp_multisource on a
+    16-bit matrix: the kernel sweeps give the plain sweeps' labels, pred
+    and sweeps, on the card and on the CPU."""
+    from repro_torch.core.bellman import sssp_bellman
+    from repro_torch.core.multisource import sssp_multisource
+    from repro_torch.kernels.sssp_relax.ops import (make_sweep_fn,
+                                                    relax_sweep_multi)
+
+    a = torch.tensor(TG.sparse_graph(3001, seed=2).adj).to(dtype)
+    adj = a.to(cuda)
+    for front in (False, True):
+        before = relax_matvec.launches
+        kd, kp, ks = sssp_bellman(adj, 0, sweep_fn=make_sweep_fn(),
+                                  use_frontier=front)
+        assert relax_matvec.launches == before + ks
+        for dev_adj in (adj, a):
+            pd, pp, ps = sssp_bellman(dev_adj, 0, use_frontier=front)
+            assert _bits(kd.cpu(), pd.cpu()) and ks == ps
+            assert torch.equal(kp.cpu(), pp.cpu())
+    srcs = torch.tensor([0, 5, 17, 3000])
+    KD, ks = sssp_multisource(adj, srcs.to(cuda), sweep_fn=relax_sweep_multi)
+    for dev_adj, dev_srcs in ((adj, srcs.to(cuda)), (a, srcs)):
+        PD, ps = sssp_multisource(dev_adj, dev_srcs)
+        assert _bits(KD.cpu(), PD.cpu()) and ks == ps
 
 
 @pytest.mark.parametrize("kind", ["sparse", "dense"])

@@ -207,6 +207,11 @@ def test_all_inf_dist():
 
 def test_kernel_wrappers_check_inputs():
     adj = torch.zeros((4, 4))
+    # float32, bfloat16 and float16 are taken; float64 and a mixed pair
+    # are refused
+    with pytest.raises(TypeError):
+        t_kernel.relax_matvec(torch.zeros(4, dtype=torch.float64),
+                              adj.double())
     with pytest.raises(TypeError):
         t_kernel.relax_matvec(torch.zeros(4, dtype=torch.bfloat16), adj)
     with pytest.raises(ValueError):
