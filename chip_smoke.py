@@ -49,8 +49,8 @@ the kernels' operation bounds use them) and then:
    wall ratio is the paper's headline comparison on this card.  The 16-bit
    mode (:func:`dense_lowp_kernel_phase`, :func:`dense_lowp_engine_phase`):
    the three kernels in bfloat16 and float16 on paper-sparse-40000's
-   matrix (3.2 GB) bitwise against their plain versions and timed, and on
-   an odd n (4099) bitwise; then, in its own launch window
+   matrix (3.2 GB) bitwise against their plain versions and timed, and at
+   n = 4099 and 4100 bitwise, in float32 too; then, in its own launch window
    (``dense_16bit``), ``sssp_bellman`` and ``sssp_multisource`` on the
    bfloat16 matrix through the kernels and through the plain sweeps, dist,
    pred, D and sweeps bitwise, one launch a sweep; one ``{"dense_16bit":
@@ -668,7 +668,8 @@ def dense_kernel_phase(g, device, rng, adj=None) -> dict:
 
     def row(name, fn, plain, nbytes, pairs, shape_):
         b, by = bound_ms(nbytes, pairs)
-        return dict(shape=shape_, bitwise_equal_plain=True,
+        return dict(shape=shape_, design=DENSE_DESIGN[name],
+                    bitwise_equal_plain=True,
                     max_abs_err=err[name], ms=time_ms(fn, KERNEL_REPS),
                     plain_ms=time_ms(plain, PLAIN_REPS), library_ms=None,
                     bound_ms=b, bound_by=by)
@@ -694,41 +695,61 @@ def dense_kernel_phase(g, device, rng, adj=None) -> dict:
     return out
 
 
-#: the 16-bit dense mode: its dtypes (each matrix 3.2 GB at n = 40,000), the
-#: one it runs the fixpoints in, and an odd n whose 16-bit rows start on
-#: every other 2-byte boundary
+#: how each dense kernel is built (csrc/), in every dtype
+DENSE_DESIGN = {
+    "relax_matvec": "16-byte column loads (8 16-bit or 4 float32 columns a "
+                    "thread; scalar loads unless n % 8 or 4 == 0 and adj "
+                    "16-byte aligned), the finite rows of a tile of 256 "
+                    "(down to 32 at small n) compacted, 8 rows loaded "
+                    "before folding, balanced work list of (column block, "
+                    "row tile), one CAS a pair of 16-bit columns",
+    "relax_matvec_frontier": "relax_matvec's, the live rows compacted from "
+                             "the frontier's finite rows",
+    "relax_matmul": "D tile transposed in shared memory, 4 columns a thread "
+                    "(16-byte float32 / 8-byte 16-bit loads when n % 4 == "
+                    "0), compacted live rows, cp.async ring of 4 (float32), "
+                    "balanced work list",
+}
+#: the 16-bit dense mode: its dtypes (each matrix 3.2 GB at n = 40,000) and
+#: the one it runs the fixpoints in
 DENSE_LOWP = ("bfloat16", "float16")
 DENSE_LOWP_ENGINES = "bfloat16"
-DENSE_ODD_N = 4099
+#: n held bitwise only, in float32 and 16 bits: 16-bit rows on every other
+#: 2-byte boundary (4099) and on 8-byte ones (4100, n % 8 == 4): the
+#: matvecs' scalar loads, relax_matmul's 8-byte loads in 16 bits
+DENSE_SMALL_NS = (4099, 4100)
 
 
 def dense_lowp_kernel_phase(g, device, rng) -> tuple[dict, dict, object]:
     """The three min-plus kernels in bfloat16 and float16 on
     paper-sparse-40000's matrix (:func:`dense_kernel_phase`: bitwise and
-    timed) and, bitwise only, on an odd-n matrix.  Returns the rows by
-    dtype and kernel, one line of what was held, and the matrix in
-    DENSE_LOWP_ENGINES for :func:`dense_lowp_engine_phase`."""
+    timed) and, bitwise only, in float32 and 16 bits on the matrices of
+    DENSE_SMALL_NS.  Returns the rows by dtype and kernel, one line of
+    what was held, and the matrix in DENSE_LOWP_ENGINES for
+    :func:`dense_lowp_engine_phase`."""
     import torch
 
     from repro_torch.core import graph as G
 
     full = torch.tensor(g.adj, device=device)
-    odd = G.sparse_graph(DENSE_ODD_N, seed=1)
-    odd_adj = torch.tensor(odd.adj, device=device)
     rows, keep = {}, None
     for name in DENSE_LOWP:
-        dtype = getattr(torch, name)
-        adj = full.to(dtype)
+        adj = full.to(getattr(torch, name))
         rows[name] = dense_kernel_phase(g, device, rng, adj=adj)
-        dist, on, D = dense_inputs(odd.n, rng, device, dtype)
-        dense_checks(odd_adj.to(dtype), dist, on, D,
-                     f"sparse-{odd.n} {name}")
         if name == DENSE_LOWP_ENGINES:
             keep = adj
         del adj
+    del full
+    for n in DENSE_SMALL_NS:
+        small = torch.tensor(G.sparse_graph(n, seed=1).adj, device=device)
+        for name in ("float32", *DENSE_LOWP):
+            dtype = getattr(torch, name)
+            dist, on, D = dense_inputs(n, rng, device, dtype)
+            dense_checks(small.to(dtype), dist, on, D, f"sparse-{n} {name}")
     line = dict(dense_16bit="kernels", dtypes=list(DENSE_LOWP),
-                bitwise_equal_plain_at=[g.n, odd.n], sources=SOURCES,
-                frontier=0.5)
+                bitwise_equal_plain_at=[g.n, *DENSE_SMALL_NS],
+                float32_bitwise_equal_plain_at=list(DENSE_SMALL_NS),
+                sources=SOURCES, frontier=0.5)
     return rows, line, keep
 
 

@@ -15,8 +15,8 @@
 // the snapshot ``dist``, so the sweep has Jacobi semantics.
 //
 // The TPU kernel walked u as a sequential grid axis and accumulated into
-// its out block.  Blocks on the H100 run in no order, so the u range is
-// split across blocks and the partial minima are combined with an
+// its out block.  Blocks on the H100 run in no order, so each block takes
+// a range of row tiles and the partial minima are combined with an
 // atomic min on the bit pattern of out[v] (atomicMin on int32 for
 // float32, a CAS on the 32-bit word for 16 bits).  For floats >= +0 and
 // +inf the order of the bit patterns is the float order; every
@@ -26,98 +26,29 @@
 //
 // Bound on the H100: memory bytes.  Each row u with a finite dist[u] is
 // streamed once (n elements of 4 or 2 bytes), plus dist read and out
-// written (2n elements); at most 2 float32 operations per element.  A row whose dist[u]
-// is +inf contributes +inf to every column, so a block skips it (the test
-// reads shared memory and is uniform across the block: no divergence) —
-// the bytes the function needs are those of the finite rows only.
+// written (2n elements); at most 2 float32 operations per element.  A row
+// whose dist[u] is +inf contributes +inf to every column, so it is never
+// read — the bytes the function needs are those of the finite rows only.
 //
-// Design: one thread per column v (256 columns a block), so the reads of
-// a row slice adj[u, v0 : v0 + 256] are coalesced and dist[u] is a
-// broadcast from shared memory.  The grid is (v-blocks, u-splits): at
-// n = 40,000 there are only 157 v-blocks for 132 SMs, far too few bytes
-// in flight to stream 6.4 GB, so each v-block's u range is cut into
-// enough splits to put ~2048 blocks on the card.  Each block stages
-// dist[u0 : u0 + 256] in shared memory per tile (widened to float32) and
-// walks the tile's rows with the loads unrolled.  A 16-bit element is one
-// 2-byte load a thread, so odd n (rows 2-byte aligned) needs no other
-// path.  Index arithmetic is 64-bit: u * n + v passes INT_MAX at
-// n > 46,340.
-#include <cuda_runtime.h>
-
-#include "min_plus_types.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;                 // columns a block = rows a tile
-constexpr long long kTargetBlocks = 2048;     // ~16 blocks an SM on 132 SMs
-
-template <typename T>
-__global__ void relax_matvec_kernel(const T* __restrict__ dist,
-                                    const T* __restrict__ adj, T* out,
-                                    long long n, long long rows_per_split) {
-  __shared__ float sd[kThreads];
-  const long long v = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  const long long u_lo = static_cast<long long>(blockIdx.y) * rows_per_split;
-  const long long u_hi = u_lo + rows_per_split < n ? u_lo + rows_per_split : n;
-  const bool col = v < n;
-  const T* a = adj + v;
-  const float kInf = __int_as_float(0x7f800000);
-  float acc = kInf;
-  for (long long u0 = u_lo; u0 < u_hi; u0 += kThreads) {
-    const int rows = static_cast<int>(u_hi - u0 < kThreads ? u_hi - u0
-                                                            : kThreads);
-    __syncthreads();                          // the last tile is consumed
-    if (threadIdx.x < rows)
-      sd[threadIdx.x] = min_plus::widen(dist[u0 + threadIdx.x]);
-    __syncthreads();
-    if (!col) continue;
-    const T* arow = a + u0 * n;
-#pragma unroll 8
-    for (int k = 0; k < rows; ++k) {
-      const float du = sd[k];
-      if (du != kInf) {
-        acc = fminf(acc, du + min_plus::load(arow +
-                                             static_cast<long long>(k) * n));
-      }
-    }
-  }
-  if (col) min_plus::atomic_min(out + v, acc);
-}
-
-template <typename T>
-int launch(const T* dist, const T* adj, T* out, long long n, void* stream) {
-  if (n <= 0) return 0;
-  const long long tiles = (n + kThreads - 1) / kThreads;  // = v-blocks
-  long long splits = (kTargetBlocks + tiles - 1) / tiles;
-  splits = splits > tiles ? tiles : splits;
-  const long long rows_per_split =
-      ((tiles + splits - 1) / splits) * kThreads;
-  splits = (n + rows_per_split - 1) / rows_per_split;
-  const dim3 grid(static_cast<unsigned>(tiles),
-                  static_cast<unsigned>(splits));
-  relax_matvec_kernel<T><<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      dist, adj, out, n, rows_per_split);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+// Design (min_plus_matvec.cuh): 16-byte column loads over a compacted
+// list of the finite rows of each tile, a balanced work list of (column
+// block, row tile) items with as many blocks as the card holds.
+#include "min_plus_matvec.cuh"
 
 extern "C" int relax_matvec_launch(const float* dist, const float* adj,
                                    float* out, long long n, void* stream) {
-  return launch(dist, adj, out, n, stream);
+  return min_plus_matvec::sweep<false>(dist, nullptr, adj, out, n, stream);
 }
 
 extern "C" int relax_matvec_bf16_launch(const __nv_bfloat16* dist,
                                         const __nv_bfloat16* adj,
                                         __nv_bfloat16* out, long long n,
                                         void* stream) {
-  return launch(dist, adj, out, n, stream);
+  return min_plus_matvec::sweep<false>(dist, nullptr, adj, out, n, stream);
 }
 
 extern "C" int relax_matvec_f16_launch(const __half* dist, const __half* adj,
                                        __half* out, long long n,
                                        void* stream) {
-  return launch(dist, adj, out, n, stream);
+  return min_plus_matvec::sweep<false>(dist, nullptr, adj, out, n, stream);
 }

@@ -158,17 +158,40 @@ def build(names) -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
+def c_entry(lib: ctypes.CDLL, entry: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``<entry>_launch`` of a loaded library, with its
+    ``ctypes`` signature and an ``int`` (cudaError) result."""
+    fn = getattr(lib, f"{entry}_launch")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.cache
 def launcher(name: str, argtypes: tuple, entry: str | None = None):
     """The C entry ``<entry>_launch`` (``entry`` defaults to ``name``) of
     kernel ``name``, built if needed, with its ``ctypes`` signature
     (pointers and the stream as ``c_void_p``)."""
     build([name])
-    fn = getattr(ctypes.CDLL(str(library_path(name))),
-                 f"{entry or name}_launch")
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    return c_entry(ctypes.CDLL(str(library_path(name))), entry or name,
+                   argtypes)
+
+
+def build_variant(source: Path, tag: str, defines=()) -> ctypes.CDLL:
+    """``source`` (a kernel of another tree, a build of this tree's with
+    ``-D<define>`` for each of ``defines``, or a tool's probe) compiled
+    with the port's flags into ``build/kernels/<stem>-<tag>.so`` and
+    loaded; raise with the compiler's output if it fails.  For the
+    measurement tools: the port's own kernels go through :func:`build`."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{source.stem}-{tag}.so"
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                        "-o", str(out), str(source)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source} ({tag}):\n{r.stdout}")
+    return ctypes.CDLL(str(out))
 
 
 def stream(t: torch.Tensor) -> int:

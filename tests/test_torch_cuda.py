@@ -6,7 +6,12 @@ relax_matmul also at n = 1025 to 1028 (every residue mod 4) and S in
 boundaries and ragged source tiles are covered, all of it also in
 bfloat16 and float16 (float16 also with sums past its largest finite
 value), and the bfloat16 fixpoints through the kernels against the plain
-sweeps; the CSR pull kernels and
+sweeps.  The two matvecs also run in all three dtypes at n = 2048 to
+2055 (every residue mod 8 at a column-block boundary), at n = 16392 and
+16393 (tall row tiles, ragged edges), on a contiguous adj view
+that is not 16-byte aligned, with frontiers of no row, one row, half and
+every row, with all-INF labels and at n below one tile.  The CSR pull
+kernels and
 the frontier push at every lane-group width, on graphs with rows that
 their whole-warp path takes.  The LMs' smoke configs on the card against
 the CPU, f32 without TF32, within 1e-4: forward, logits, prefill + decode
@@ -271,6 +276,121 @@ def test_kernel_wrappers_launch_on_bf16_cuda_tensors(cuda):
         before = fn.launches
         assert fn(*args).dtype == torch.bfloat16
         assert fn.launches == before + 1
+
+
+DENSE = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _matvecs_bitwise(d, on, adj):
+    """Both matvecs against their plain versions (the frontier one also
+    against the masked relax_matvec), one launch a call."""
+    counts = relax_matvec.launches, relax_matvec_frontier.launches
+    assert _bits(relax_matvec(d, adj), relax_sweep_ref(d, adj))
+    got = relax_matvec_frontier(d, on, adj)
+    assert _bits(got, relax_sweep_frontier_ref(d, on, adj))
+    assert (relax_matvec.launches, relax_matvec_frontier.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    masked = torch.where(on, d, torch.inf)
+    assert _bits(got, torch.minimum(d, relax_matvec(masked, adj)))
+
+
+@pytest.mark.parametrize("dtype", DENSE, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", range(2048, 2056))
+def test_matvecs_every_residue_mod_8_at_a_tile_boundary(cuda, n, dtype):
+    """n = 2048 ... 2055: every residue of n mod 8 (the 16-byte loads need
+    n % 8 == 0 in 16 bits, n % 4 == 0 in float32; other n take the
+    scalar loads) where the columns cross a block of 2048 (16 bits) or
+    1024 (float32) and the rows a tile (of 32 to 256 rows: the tiles
+    shrink at small n)."""
+    adj = torch.tensor(TG.random_graph(n, 4 * n, seed=n).adj,
+                       device=cuda).to(dtype)
+    d = _dist(n, n, cuda).to(dtype)
+    on = torch.tensor(np.random.default_rng(n).random(n) < 0.5, device=cuda)
+    _matvecs_bitwise(d, on, adj)
+
+
+@pytest.mark.parametrize("dtype", DENSE, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [16392, 16393])
+def test_matvecs_tall_tiles_ragged_edges(cuda, n, dtype):
+    """n large enough for tiles of 128 to 256 rows, with a ragged last
+    tile and column block, on the 16-byte loads (16392) and the scalar
+    loads (16393): a matrix of half INF weights drawn on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    adj = torch.rand(n, n, generator=gen, device=cuda) * 100.0
+    adj[torch.rand(n, n, generator=gen, device=cuda) < 0.5] = torch.inf
+    adj = adj.to(dtype)
+    d = _dist(n, n, cuda).to(dtype)
+    on = torch.tensor(np.random.default_rng(n).random(n) < 0.5, device=cuda)
+    _matvecs_bitwise(d, on, adj)
+
+
+@pytest.mark.parametrize("dtype", DENSE, ids=["f32", "bf16", "f16"])
+def test_matvecs_on_a_misaligned_view(cuda, dtype):
+    """A contiguous adj view that starts one element into its buffer (not
+    16-byte aligned, though n % 8 == 0) takes the scalar loads and stays
+    bitwise."""
+    n = 2048
+    a = torch.tensor(TG.random_graph(n, 4 * n, seed=3).adj,
+                     device=cuda).to(dtype)
+    buf = torch.empty(n * n + 1, dtype=dtype, device=cuda)
+    adj = buf[1:1 + n * n].view(n, n)
+    adj.copy_(a)
+    assert adj.is_contiguous() and adj.data_ptr() % 16 != 0
+    d = _dist(n, 5, cuda).to(dtype)
+    on = torch.tensor(np.random.default_rng(5).random(n) < 0.5, device=cuda)
+    _matvecs_bitwise(d, on, adj)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_matvecs_refuse_a_16bit_out_off_a_word_boundary(cuda, dtype):
+    """A 16-bit column pair is lowered by one CAS on its 32-bit word, so
+    the C entry refuses an ``out`` that starts inside a word (the wrapper
+    always passes a fresh clone) and leaves it as it was."""
+    import ctypes
+
+    from repro_torch.kernels.sssp_relax import kernel as K
+
+    n = 64
+    adj = torch.tensor(TG.random_graph(n, 4 * n, seed=7).adj,
+                       device=cuda).to(dtype)
+    d = _dist(n, 7, cuda).to(dtype)
+    buf = torch.empty(n + 1, dtype=dtype, device=cuda)
+    out = buf[1:]
+    out.copy_(d)
+    assert out.data_ptr() % 4 != 0
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    fn = K._entry("relax_matvec", dtype, (P, P, P, I64, P))
+    rc = fn(d.data_ptr(), adj.data_ptr(), out.data_ptr(), n,
+            common.stream(d))
+    torch.cuda.synchronize()
+    assert rc == 716                          # cudaErrorMisalignedAddress
+    assert _bits(out, d)
+    fn = K._entry("relax_matvec_frontier", dtype, (P, P, P, P, I64, P))
+    on = torch.ones(n, dtype=torch.bool, device=cuda)
+    assert fn(d.data_ptr(), on.data_ptr(), adj.data_ptr(), out.data_ptr(), n,
+              common.stream(d)) == 716
+    assert _bits(out, d)
+
+
+@pytest.mark.parametrize("dtype", DENSE, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [1, 7, 100, 4096])
+def test_matvecs_frontiers_inf_labels_and_small_n(cuda, n, dtype):
+    """Frontiers of no row, one row, half the rows and every row; all-INF
+    labels (no live row anywhere); n below one tile of 256 rows."""
+    adj = torch.tensor(TG.random_graph(n, 4 * n, seed=n + 1).adj,
+                       device=cuda).to(dtype)
+    d = _dist(n, n + 1, cuda).to(dtype)
+    d[0] = 0.0
+    one = torch.zeros(n, dtype=torch.bool, device=cuda)
+    one[0] = True
+    half = torch.tensor(np.random.default_rng(n).random(n) < 0.5,
+                        device=cuda)
+    for on in (torch.zeros_like(one), one, half, torch.ones_like(one)):
+        _matvecs_bitwise(d, on, adj)
+    inf = torch.full((n,), torch.inf, device=cuda).to(dtype)
+    _matvecs_bitwise(inf, half, adj)
+    assert _bits(relax_matvec(inf, adj), inf)
 
 
 @pytest.mark.parametrize("scale", [1.0, 20.0])

@@ -214,3 +214,47 @@ def test_kernel_arithmetic_equals_plain_16bit(kind, n, s, data):
     assert np.array_equal(
         bits(t_ref.relax_sweep_frontier_ref(tD[0], torch.tensor(f), ta)),
         model_sweep(d32[:1], a32, kind, f)[0])
+
+
+@settings(max_examples=60, deadline=None)
+@given(kind=st.sampled_from(sorted(DTYPES)), n=st.integers(1, 24),
+       data=st.data())
+def test_partial_minima_over_row_ranges_equal_plain_16bit(kind, n, data):
+    """The matvec kernels' work list: a block folds a contiguous range of
+    rows (its items) in float32, rounds the range's minimum once to 16
+    bits and lowers ``out`` (a copy of dist) by the min of the bit
+    patterns.  Over any cut of the rows into ranges, with all-INF ranges,
+    empty frontiers and float16 sums past 65504, that equals the plain
+    sweep and the plain frontier sweep."""
+    d = np.array(data.draw(st.lists(LABEL, min_size=n, max_size=n)),
+                 np.float32)
+    adj = np.array(data.draw(st.lists(WEIGHT, min_size=n * n,
+                                      max_size=n * n)),
+                   np.float32).reshape(n, n)
+    np.fill_diagonal(adj, 0.0)
+    cuts = data.draw(st.lists(st.integers(1, max(1, n - 1)), max_size=6))
+    bounds = [0, *sorted(set(c for c in cuts if c < n)), n]
+    ranges = list(zip(bounds[:-1], bounds[1:]))
+    lo, hi = ranges[data.draw(st.integers(0, len(ranges) - 1))]
+    if data.draw(st.booleans()):
+        d[lo:hi] = np.inf                     # a range with no live row
+    frontier = np.array(data.draw(st.one_of(
+        st.just([False] * n),
+        st.lists(st.booleans(), min_size=n, max_size=n))))
+    tdt = DTYPES[kind][0]
+    td, ta = torch.tensor(d).to(tdt), torch.tensor(adj).to(tdt)
+    d32, a32 = td.float().numpy(), ta.float().numpy()
+
+    def by_ranges(rows):
+        out = bits(td).copy()
+        src = np.where(rows & np.isfinite(d32), d32, np.float32(np.inf))
+        for r0, r1 in ranges:
+            part = np.min(src[r0:r1, None] + a32[r0:r1], axis=0)
+            out = np.minimum(out, round_once(part, kind))
+        return out
+
+    assert np.array_equal(bits(t_ref.relax_sweep_ref(td, ta)),
+                          by_ranges(np.ones(n, bool)))
+    assert np.array_equal(
+        bits(t_ref.relax_sweep_frontier_ref(td, torch.tensor(frontier), ta)),
+        by_ranges(frontier))

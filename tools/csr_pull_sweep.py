@@ -22,7 +22,6 @@ mismatch or without a CUDA GPU.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 import sys
@@ -42,15 +41,9 @@ def variant_launcher(name: str, argtypes, define: str):
     group)."""
     from repro_torch.kernels import common
 
-    tag = define.replace("=", "-")
-    out = common.BUILD_DIR / f"{name}-{tag}.so"
-    common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([common._nvcc(), *common.NVCC_FLAGS, f"-D{define}", "-o",
-                    str(out), str(common.CSRC / f"{name}.cu")], check=True)
-    fn = getattr(ctypes.CDLL(str(out)), f"{name}_launch")
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    lib = common.build_variant(common.CSRC / f"{name}.cu",
+                               define.replace("=", "-"), [define])
+    return common.c_entry(lib, name, argtypes)
 
 
 NO_LONG_ROW = "CSR_PULL_LONG_ROW=0xffffffffu"

@@ -36,19 +36,11 @@ import chip_smoke as S  # noqa: E402  (also puts src/ on the path)
 def build_parent(csrc: Path):
     """The C entry of ``csrc/frontier_relax.cu``, built beside the port's
     kernels under another name."""
-    import ctypes
-
     from repro_torch.kernels import common
     from repro_torch.kernels.frontier_relax import kernel as KF
 
-    out = common.BUILD_DIR / "frontier_relax-parent.so"
-    common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-o", str(out),
-                    str(csrc / "frontier_relax.cu")], check=True)
-    fn = getattr(ctypes.CDLL(str(out)), "frontier_relax_launch")
-    fn.argtypes = list(KF._ARGS)
-    fn.restype = ctypes.c_int
-    return fn
+    lib = common.build_variant(csrc / "frontier_relax.cu", "parent")
+    return common.c_entry(lib, "frontier_relax", KF._ARGS)
 
 
 def push(fn, dist, fids, flab, ops, scratch, fell, bound, group) -> None:

@@ -41,16 +41,10 @@ def build():
     """The C entry of ``label_push_parts.cu``."""
     from repro_torch.kernels import common
 
-    out = common.BUILD_DIR / "label_push_parts.so"
-    common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-o", str(out),
-                    str(SOURCE)], check=True)
-    fn = ctypes.CDLL(str(out)).label_push_parts_launch
     P, I = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, P, P, P, I, I, P, P, P, P, P,
-                   P, P]
-    fn.restype = ctypes.c_int
-    return fn
+    return common.c_entry(
+        common.build_variant(SOURCE, "tool"), "label_push_parts",
+        [ctypes.c_int, ctypes.c_int, P, P, P, I, I, P, P, P, P, P, P, P])
 
 
 def main() -> int:

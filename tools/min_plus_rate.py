@@ -15,7 +15,6 @@ nothing of FMNMX.  Exits non-zero without a CUDA GPU.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import statistics
 import subprocess
@@ -34,23 +33,13 @@ MODES = {"fadd_per_s": 0, "fmnmx_per_s": 1, "add_min_pairs_per_s": 2}
 
 
 def _launcher():
-    """Build the probe (once per source hash) and return its C entry."""
+    """Build the probe and return its C entry."""
     from repro_torch.kernels import common
 
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(common.NVCC_FLAGS).encode())
-    lib = common.BUILD_DIR / f"min_plus_rate-{h.hexdigest()[:16]}.so"
-    if not lib.exists():
-        common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(".tmp")
-        subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-o", str(tmp),
-                        str(SOURCE)], check=True)
-        tmp.replace(lib)
-    fn = ctypes.CDLL(str(lib)).min_plus_probe_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return common.c_entry(
+        common.build_variant(SOURCE, "tool"), "min_plus_probe",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p])
 
 
 def rates(device) -> dict:
